@@ -24,17 +24,6 @@ import msgpack
 import numpy as np
 import torch
 
-from semadb_tpu.models.collection import Collection
-from semadb_tpu.models.errors import (
-    ExistsError,
-    NotFoundError,
-    QuotaReachedError,
-    ShardUnavailableError,
-)
-from semadb_tpu.models.point import Point, SearchResult, result_doc
-from semadb_tpu.models.query import SearchRequest
-from semadb_tpu.store.diskstore import open_store
-from semadb_tpu.utils.compare import sort_search_results
 from semadb_tpu_torch.cluster.hashing import rendezvous_hash
 from semadb_tpu_torch.cluster.metrics import count_point_op, observe_rpc
 from semadb_tpu_torch.cluster.placement import (
@@ -44,6 +33,17 @@ from semadb_tpu_torch.cluster.placement import (
 )
 from semadb_tpu_torch.cluster.rpc import RPCClientPool, RPCError, RPCServer
 from semadb_tpu_torch.cluster.shardmgr import ShardManager
+from semadb_tpu_torch.models.collection import Collection
+from semadb_tpu_torch.models.errors import (
+    ExistsError,
+    NotFoundError,
+    QuotaReachedError,
+    ShardUnavailableError,
+)
+from semadb_tpu_torch.models.point import Point, SearchResult, result_doc
+from semadb_tpu_torch.models.query import SearchRequest
+from semadb_tpu_torch.store.diskstore import open_store
+from semadb_tpu_torch.utils.compare import sort_search_results
 from semadb_tpu_torch.utils.logging import get_logger
 
 LOG = get_logger("cluster")

@@ -10,7 +10,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Tuple
 
-from semadb_tpu.models.point import Point
+from semadb_tpu_torch.models.point import Point
 
 
 @dataclass

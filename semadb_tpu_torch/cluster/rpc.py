@@ -19,7 +19,7 @@ from typing import Any, Callable, Dict
 
 import msgpack
 
-from semadb_tpu.models.errors import TimeoutError_
+from semadb_tpu_torch.models.errors import TimeoutError_
 
 RPC_PATH_PREFIX = "/rpc/"
 

@@ -20,10 +20,10 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from semadb_tpu.models.collection import Collection
-from semadb_tpu.store.diskstore import open_store
+from semadb_tpu_torch.models.collection import Collection
 from semadb_tpu_torch.shard.registry import HBMBudget
 from semadb_tpu_torch.shard.shard import Shard
+from semadb_tpu_torch.store.diskstore import open_store
 
 SHARD_DB_FILE = "sharddb.sdb"
 

@@ -12,7 +12,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
-from semadb_tpu.models.collection import UserPlan
+from semadb_tpu_torch.models.collection import UserPlan
 
 try:
     from prometheus_client import Counter, Histogram

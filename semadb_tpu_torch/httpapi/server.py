@@ -18,7 +18,6 @@ from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Tuple
 
-from semadb_tpu.models.collection import UserPlan
 from semadb_tpu_torch.cluster.node import ClusterNode
 from semadb_tpu_torch.httpapi.encdec import decode_body, encode_body
 from semadb_tpu_torch.httpapi.middleware import (
@@ -30,6 +29,7 @@ from semadb_tpu_torch.httpapi.middleware import (
     record_metrics,
     start_metrics_server,
 )
+from semadb_tpu_torch.models.collection import UserPlan
 
 
 @dataclass

@@ -15,7 +15,10 @@ import re
 import uuid as uuid_mod
 from typing import List
 
-from semadb_tpu.models import (
+from semadb_tpu_torch.cluster.node import ClusterNode
+from semadb_tpu_torch.httpapi.middleware import HttpError, RequestContext
+from semadb_tpu_torch.index.manager import check_supported
+from semadb_tpu_torch.models import (
     Collection,
     ExistsError,
     IndexSchema,
@@ -27,9 +30,6 @@ from semadb_tpu.models import (
     ValidationError,
     extract_id_field,
 )
-from semadb_tpu_torch.cluster.node import ClusterNode
-from semadb_tpu_torch.httpapi.middleware import HttpError, RequestContext
-from semadb_tpu_torch.index.manager import check_supported
 
 _ID_RE = re.compile(r"^[A-Za-z0-9]{3,24}$")
 

@@ -13,9 +13,9 @@ from typing import Iterable, Optional, Tuple
 import numpy as np
 import torch
 
-from semadb_tpu.models.schema import VectorFlatParams
-from semadb_tpu.utils.grow import initial_capacity, next_capacity
+from semadb_tpu_torch.models.schema import VectorFlatParams
 from semadb_tpu_torch.ops.topk import top_k_smallest
+from semadb_tpu_torch.utils.grow import initial_capacity, next_capacity
 from semadb_tpu_torch.vectorstore import QuantConfig, VectorStore
 from semadb_tpu_torch.vectorstore.store import host_tensor
 

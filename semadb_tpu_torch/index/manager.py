@@ -24,14 +24,14 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
-from semadb_tpu.models import constants as C
-from semadb_tpu.models.errors import NotFoundError, ValidationError
-from semadb_tpu.models.point import SearchResult, access_nested, decode_point_data
-from semadb_tpu.models.query import Query
-from semadb_tpu.models.schema import IndexSchema
-from semadb_tpu.store.diskstore import BucketManager
 from semadb_tpu_torch.index.flat import IndexFlat
+from semadb_tpu_torch.models import constants as C
+from semadb_tpu_torch.models.errors import NotFoundError, ValidationError
+from semadb_tpu_torch.models.point import SearchResult, access_nested, decode_point_data
+from semadb_tpu_torch.models.query import Query
+from semadb_tpu_torch.models.schema import IndexSchema
 from semadb_tpu_torch.shard import pointstore
+from semadb_tpu_torch.store.diskstore import BucketManager
 from semadb_tpu_torch.vectorstore import PRODUCT, QuantConfig
 
 OP_INSERT = "insert"

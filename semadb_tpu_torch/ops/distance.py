@@ -21,7 +21,7 @@ import math
 
 import torch
 
-from semadb_tpu.models import constants as C
+from semadb_tpu_torch.models import constants as C
 from semadb_tpu_torch.ops.kernels.hamming import (
     pairwise_bit_distance_plain as pairwise_bit_distance,
 )

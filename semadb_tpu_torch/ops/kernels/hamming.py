@@ -20,23 +20,15 @@ same bits): torch's ``uint32`` has too few operators to compute with.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import tempfile
 import threading
 
 import torch
 
-from semadb_tpu.models import constants as C
+from semadb_tpu_torch.models import constants as C
+from semadb_tpu_torch.utils.build import CSRC_DIR, NVCC_FLAGS, build_library, nvcc
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(__file__))), "csrc", "hamming.cu")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(__file__))), "_build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+SOURCE = os.path.join(CSRC_DIR, "hamming.cu")
 METRIC_FLAGS = {C.DISTANCE_HAMMING: 0, C.DISTANCE_JACCARD: 1}
 MAX_B_PER_LAUNCH = 65535  # grid.y limit at one query per block row
 
@@ -144,12 +136,7 @@ def _library():
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        with open(SOURCE, "rb") as f:
-            src = f.read()
-        key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        path = os.path.join(BUILD_DIR, f"hamming-{key}.so")
-        if not os.path.exists(path):
-            BUILD_LOG = _build(path)
+        path, BUILD_LOG = build_library("hamming", SOURCE, nvcc(), NVCC_FLAGS)
         lib = ctypes.CDLL(path)
         lib.semadb_bit_distance.restype = ctypes.c_int
         lib.semadb_bit_distance.argtypes = [
@@ -161,35 +148,3 @@ def _library():
         lib.semadb_cuda_error_string.argtypes = [ctypes.c_int]
         _LIB = lib
         return lib
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; cannot build the bit distance kernel")
-
-
-def _build(path: str) -> str:
-    """Compile the kernel library to ``path`` (atomically); return nvcc's output."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {SOURCE}:\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return proc.stdout + proc.stderr

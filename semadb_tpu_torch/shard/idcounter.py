@@ -10,8 +10,8 @@ from __future__ import annotations
 import struct
 from typing import List
 
-from semadb_tpu.models import constants as C
-from semadb_tpu.store.diskstore import Bucket
+from semadb_tpu_torch.models import constants as C
+from semadb_tpu_torch.store.diskstore import Bucket
 
 FREE_IDS_KEY = b"freeNodeIds"
 NEXT_FREE_ID_KEY = b"nextFreeNodeId"

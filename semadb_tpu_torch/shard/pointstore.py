@@ -13,9 +13,9 @@ import uuid as uuid_mod
 from dataclasses import dataclass
 from typing import Optional
 
-from semadb_tpu.models.errors import NotFoundError
-from semadb_tpu.models.point import Point
-from semadb_tpu.store.diskstore import Bucket
+from semadb_tpu_torch.models.errors import NotFoundError
+from semadb_tpu_torch.models.point import Point
+from semadb_tpu_torch.store.diskstore import Bucket
 
 POINTS_BUCKET_NAME = "points"
 

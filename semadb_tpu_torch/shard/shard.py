@@ -31,19 +31,19 @@ import msgpack
 import numpy as np
 import torch
 
-from semadb_tpu.models import constants as C
-from semadb_tpu.models.collection import Collection
-from semadb_tpu.models.errors import ExistsError, ValidationError
-from semadb_tpu.models.point import Point, SearchResult, decode_point_data
-from semadb_tpu.models.query import SearchRequest
-from semadb_tpu.store.diskstore import DiskStore
-from semadb_tpu.utils.compare import sort_search_results
 from semadb_tpu_torch.index.flat import IndexFlat
 from semadb_tpu_torch.index.manager import IndexManager, IndexPointChange, check_supported
+from semadb_tpu_torch.models import constants as C
+from semadb_tpu_torch.models.collection import Collection
+from semadb_tpu_torch.models.errors import ExistsError, ValidationError
+from semadb_tpu_torch.models.point import Point, SearchResult, decode_point_data
+from semadb_tpu_torch.models.query import SearchRequest
 from semadb_tpu_torch.shard import pointstore
 from semadb_tpu_torch.shard import snapshot as snap
 from semadb_tpu_torch.shard.idcounter import IdCounter
 from semadb_tpu_torch.shard.registry import DeviceRegistry, HBMBudget
+from semadb_tpu_torch.store.diskstore import DiskStore
+from semadb_tpu_torch.utils.compare import sort_search_results
 from semadb_tpu_torch.utils.logging import get_logger
 
 LOG = get_logger("shard")
@@ -479,7 +479,7 @@ class Shard:
                 self.db.read(reader)
             if out_docs is not None:
                 return out_docs
-        from semadb_tpu.models.point import result_doc
+        from semadb_tpu_torch.models.point import result_doc
 
         return [
             [result_doc(r) for r in row]

@@ -27,10 +27,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from semadb_tpu.models import Collection, Point, UserPlan
 from semadb_tpu_torch.cluster.node import ClusterNode
 from semadb_tpu_torch.httpapi.server import HttpServer, run_http_server
 from semadb_tpu_torch.index.flat import IndexFlat
+from semadb_tpu_torch.models import Collection, Point, UserPlan
 from semadb_tpu_torch.ops.topk import tie_rule_errors
 from semadb_tpu_torch.utils.config import ConfigMap, load_config
 

@@ -38,7 +38,7 @@ import time
 import numpy as np
 import torch
 
-from semadb_tpu.models import SearchRequest
+from semadb_tpu_torch.models import SearchRequest
 from semadb_tpu_torch.ops.kernels import hamming
 from semadb_tpu_torch.tools import dbpedia_bq as bq
 

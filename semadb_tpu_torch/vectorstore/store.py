@@ -19,8 +19,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from semadb_tpu.models import constants as C
-from semadb_tpu.models.quantizer import Quantizer
+from semadb_tpu_torch.models import constants as C
+from semadb_tpu_torch.models.quantizer import Quantizer
 from semadb_tpu_torch.ops import bitops
 from semadb_tpu_torch.ops.distance import pairwise_distance
 from semadb_tpu_torch.ops.kernels.hamming import pairwise_bit_distance_kernel

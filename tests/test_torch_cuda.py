@@ -1,22 +1,22 @@
-"""K1 and the flat index on a CUDA card (skipped without one).
+"""K1, K2 and the flat index on a CUDA card (skipped without one).
 
-These need the card: the CUDA kernel has no CPU mode. The file imports no
-JAX, so it also runs where JAX is not installed:
+These need the card: the CUDA kernels have no CPU mode. The file imports
+neither JAX nor the JAX package, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Tolerances: hamming exact; jaccard within 1e-6 absolute (one IEEE f32
-division on both sides, so in practice exact).
+division on both sides, so in practice exact); the gather exact.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from semadb_tpu.models.quantizer import BinaryQuantizerParams, Quantizer
-from semadb_tpu.models.schema import VectorFlatParams
 from semadb_tpu_torch.index.flat import IndexFlat
-from semadb_tpu_torch.ops.kernels import hamming
+from semadb_tpu_torch.models.quantizer import BinaryQuantizerParams, Quantizer
+from semadb_tpu_torch.models.schema import VectorFlatParams
+from semadb_tpu_torch.ops.kernels import gather, hamming
 
 CASES = [(1, 1, 1), (7, 511, 5), (33, 700, 48), (64, 4099, 48), (300, 1000, 3)]
 
@@ -84,3 +84,60 @@ def test_flat_index_on_card_matches_cpu(cuda):
     full = on_cpu.store.scan_distances(torch.from_numpy(queries), on_cpu.vectors, on_cpu.exists)
     for b in range(len(queries)):
         np.testing.assert_array_equal(full[b, i_card[b]].numpy(), d_card[b])
+
+
+GATHER_CASES = [(1, 1, 1), (3, 1023, 70001), (128, 1024, 70001), (128, 5000, 1), (1536, 777, 4096)]
+
+
+def _gather_ids(gen, n, cap, device):
+    ids = torch.randint(0, cap, (n,), generator=gen, dtype=torch.int32)
+    ids[0] = 0
+    if n > 1:
+        ids[-1] = cap - 1
+    if n > 2:
+        ids[n // 2] = ids[-1]  # a repeat
+    return ids.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n,cap", GATHER_CASES)
+def test_gather_kernel_matches_plain(cuda, d, n, cap):
+    gen = torch.Generator().manual_seed(d * 7 + n + cap)
+    vectors = torch.randn((cap, d), generator=gen).to(cuda)
+    ids = _gather_ids(gen, n, cap, cuda)
+    before = gather.LAUNCHES
+    got = gather.gather_rows_padded(vectors, ids, check=True)
+    torch.cuda.synchronize()
+    assert gather.LAUNCHES == before + 1
+    assert torch.equal(got, gather.gather_rows_plain(vectors, ids))
+    if n % gather.TILE == 0:
+        assert torch.equal(gather.gather_rows(vectors, ids), got)
+
+
+@pytest.mark.cuda
+def test_gather_kernel_unaligned_rows(cuda):
+    """A base pointer off the 16-byte grid takes the 4-byte copy."""
+    gen = torch.Generator().manual_seed(5)
+    flat = torch.randn(1 + 300 * 128, generator=gen).to(cuda)
+    vectors = flat[1:].view(300, 128)
+    assert vectors.data_ptr() % 16 != 0
+    ids = _gather_ids(gen, 999, 300, cuda)
+    assert torch.equal(gather.gather_rows_padded(vectors, ids, check=True),
+                       gather.gather_rows_plain(vectors, ids))
+
+
+@pytest.mark.cuda
+def test_gather_kernel_reports_bad_ids(cuda):
+    vectors = torch.randn((100, 16), device=cuda)
+    for bad in (100, -1):
+        ids = torch.tensor([0, 5, bad, 99], dtype=torch.int32, device=cuda)
+        with pytest.raises(IndexError, match=r"outside \[0, 100\)"):
+            gather.gather_rows_padded(vectors, ids, check=True)
+        out = gather.gather_rows_padded(vectors, ids)  # unchecked: the row is zero, nothing read
+        torch.cuda.synchronize()
+        assert torch.equal(out[2], torch.zeros(16, device=cuda))
+        assert torch.equal(out[[0, 1, 3]], vectors[[0, 5, 99]])
+    with pytest.raises(ValueError, match="multiple of 1024"):
+        gather.gather_rows(vectors, torch.zeros(1000, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="cpu"):
+        gather.gather_rows_padded(vectors, torch.zeros(4, dtype=torch.int32))

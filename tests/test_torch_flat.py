@@ -4,16 +4,17 @@ The same seeded numpy inserts, deletes and queries go through
 ``semadb_tpu`` (JAX on the CPU) and ``semadb_tpu_torch`` (PyTorch on the
 CPU). Tolerances: bit distances exact; float distances rtol 1e-5, atol 1e-4;
 ids by the tie rule (``semadb_tpu_torch.ops.topk.tie_rule_errors``).
-``from_arrays`` / ``to_arrays`` are crossed in both directions.
+``from_arrays`` / ``to_arrays`` are crossed in both directions. Each package
+gets its own parameter objects (``_params``), built the same way.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import semadb_tpu.models as jax_models
+import semadb_tpu_torch.models as port_models
 from semadb_tpu.index.flat import IndexFlat as JaxIndexFlat
-from semadb_tpu.models.quantizer import BinaryQuantizerParams, ProductQuantizerParams, Quantizer
-from semadb_tpu.models.schema import VectorFlatParams
 from semadb_tpu.vectorstore import QuantConfig as JaxQuantConfig
 from semadb_tpu.vectorstore import VectorStore as JaxVectorStore
 from semadb_tpu_torch.index.flat import IndexFlat
@@ -30,14 +31,16 @@ def _unit(n, dim=DIM):
     return v / np.linalg.norm(v, axis=1, keepdims=True)
 
 
-def _params(kind, metric="cosine"):
+def _params(kind, models=port_models, metric="cosine"):
+    """Flat index parameters of ``kind``, as objects of ``models`` (the JAX
+    package's or the port's)."""
     if kind == "plain":
         q = None
     elif kind == "binary-fixed":
-        q = Quantizer(type="binary", binary=BinaryQuantizerParams(distance_metric="hamming", threshold=0.0))
+        q = models.Quantizer(type="binary", binary=models.BinaryQuantizerParams(distance_metric="hamming", threshold=0.0))
     elif kind == "binary-fitted":
-        q = Quantizer(type="binary", binary=BinaryQuantizerParams(distance_metric="jaccard", trigger_threshold=40))
-    return VectorFlatParams(vector_size=DIM, distance_metric=metric, quantizer=q)
+        q = models.Quantizer(type="binary", binary=models.BinaryQuantizerParams(distance_metric="jaccard", trigger_threshold=40))
+    return models.VectorFlatParams(vector_size=DIM, distance_metric=metric, quantizer=q)
 
 
 def _assert_same_search(jidx, tidx, queries, k, filter_mask=None, float_metric=False):
@@ -90,8 +93,8 @@ def test_vector_store_scan_matches_jax(cfg):
 
 
 def test_product_quantizer_not_ported_yet():
-    q = Quantizer(type="product", product=ProductQuantizerParams(num_centroids=16, num_subvectors=8))
-    params = VectorFlatParams(vector_size=DIM, distance_metric="euclidean", quantizer=q)
+    q = port_models.Quantizer(type="product", product=port_models.ProductQuantizerParams(num_centroids=16, num_subvectors=8))
+    params = port_models.VectorFlatParams(vector_size=DIM, distance_metric="euclidean", quantizer=q)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         IndexFlat(params, CPU)
 
@@ -101,8 +104,7 @@ def test_product_quantizer_not_ported_yet():
 
 @pytest.mark.parametrize("kind", ["plain", "binary-fixed", "binary-fitted"])
 def test_flat_index_matches_jax(kind):
-    params = _params(kind)
-    jidx, tidx = JaxIndexFlat(params), IndexFlat(params, CPU)
+    jidx, tidx = JaxIndexFlat(_params(kind, jax_models)), IndexFlat(_params(kind), CPU)
     vecs = _unit(300)
     ids = np.arange(2, 302)
     for lo in (0, 120):  # two batches: the second crosses a capacity growth
@@ -133,13 +135,13 @@ def test_flat_index_reserved_ids_refused():
 
 @pytest.mark.parametrize("kind", ["plain", "binary-fixed", "binary-fitted"])
 def test_flat_arrays_cross_both_ways(kind):
-    params = _params(kind)
+    params, jparams = _params(kind), _params(kind, jax_models)
     vecs = _unit(220)
     changes = list(zip(range(2, 222), vecs)) + [(9, None), (30, None)]
     queries = _unit(4)
     float_metric = kind == "plain"
 
-    jidx = JaxIndexFlat(params)
+    jidx = JaxIndexFlat(jparams)
     jidx.insert_update_delete(changes)
     jarrays = jidx.to_arrays()
     tidx = IndexFlat.from_arrays(params, jarrays, CPU)
@@ -153,7 +155,7 @@ def test_flat_arrays_cross_both_ways(kind):
     if tarrays["store"]["fitted"]:
         assert tarrays["store"]["codes"].dtype == np.uint32
         np.testing.assert_array_equal(tarrays["store"]["codes"], jarrays["store"]["codes"])
-    jback = JaxIndexFlat.from_arrays(params, tarrays)
+    jback = JaxIndexFlat.from_arrays(jparams, tarrays)
     _assert_same_search(jback, tsrc, queries, 12, float_metric=float_metric)
     # Row-bounded arrays (what snapshots hold) re-pad on the same chain
     rows = 150
@@ -163,6 +165,6 @@ def test_flat_arrays_cross_both_ways(kind):
     }
     if bounded["store"]["fitted"]:
         bounded["store"]["codes"] = jarrays["store"]["codes"][:rows]
-    jb, tb = JaxIndexFlat.from_arrays(params, bounded), IndexFlat.from_arrays(params, bounded, CPU)
+    jb, tb = JaxIndexFlat.from_arrays(jparams, bounded), IndexFlat.from_arrays(params, bounded, CPU)
     assert tb.capacity == jb.capacity
     _assert_same_search(jb, tb, queries, 12, float_metric=float_metric)

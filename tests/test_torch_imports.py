@@ -1,9 +1,11 @@
-"""The port stands apart from JAX.
+"""The port stands apart from JAX and from the JAX package.
 
-An ``ast`` walk of ``semadb_tpu_torch/`` finds no ``jax`` import and no
-``semadb_tpu.*`` import outside the modules the port shares (those that
-never import JAX). A subprocess with ``jax`` blocked imports every module
-of the port and runs a tiny slice on ``cpu``.
+An ``ast`` walk of ``semadb_tpu_torch/`` and ``chip_smoke.py`` finds no
+``jax`` import and no ``semadb_tpu`` import. A subprocess with both blocked
+imports every module of the port and runs a tiny slice on ``cpu``. The host
+modules the port keeps its own copies of (``models/``, ``store/``,
+``utils/{compare,grow}.py``, ``csrc/kvstore.cpp``) stay the same as the JAX
+package's originals, apart from their imports and the store's native build.
 """
 
 import ast
@@ -15,14 +17,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "semadb_tpu_torch")
-SHARED = (
-    "semadb_tpu.models",
-    "semadb_tpu.store",
-    "semadb_tpu.utils.compare",
-    "semadb_tpu.utils.grow",
-    "semadb_tpu.utils.dirty",
-    "semadb_tpu.utils.itemcache",
-)
+JAX_PKG = os.path.join(ROOT, "semadb_tpu")
 
 
 def _port_modules():
@@ -42,15 +37,15 @@ def _imports(path):
 
 
 def _allowed(name):
-    if name == "jax" or name.startswith(("jax.", "jaxlib")):
-        return False
-    if name == "semadb_tpu" or name.startswith("semadb_tpu."):
-        return any(name == s or name.startswith(s + ".") for s in SHARED)
-    return True
+    return not (
+        name == "jax" or name.startswith(("jax.", "jaxlib"))
+        or name == "semadb_tpu" or name.startswith("semadb_tpu.")
+    )
 
 
 @pytest.mark.parametrize(
-    "path", sorted(_port_modules()), ids=lambda p: os.path.relpath(p, PKG)
+    "path", sorted(_port_modules()) + [os.path.join(ROOT, "chip_smoke.py")],
+    ids=lambda p: os.path.relpath(p, PKG) if p.startswith(PKG) else os.path.basename(p),
 )
 def test_port_module_imports(path):
     bad = [n for n in _imports(path) if not _allowed(n)]
@@ -60,12 +55,13 @@ def test_port_module_imports(path):
 SLICE = r"""
 import sys, tempfile
 sys.modules["jax"] = None  # any import of jax now raises
+sys.modules["semadb_tpu"] = None  # and of the JAX package
 import pkgutil, importlib
 import numpy as np, torch
 import semadb_tpu_torch
 for m in pkgutil.walk_packages(semadb_tpu_torch.__path__, "semadb_tpu_torch."):
     importlib.import_module(m.name)
-from semadb_tpu.models import Collection, IndexSchema, Point, SearchRequest, UserPlan
+from semadb_tpu_torch.models import Collection, IndexSchema, Point, SearchRequest, UserPlan
 from semadb_tpu_torch.cluster.node import ClusterNode, ClusterNodeConfig
 schema = {"v": {"type": "vectorFlat", "vectorFlat": {"vectorSize": 64, "distanceMetric": "cosine",
           "quantizer": {"type": "binary", "binary": {"distanceMetric": "hamming", "threshold": 0.0}}}}}
@@ -81,7 +77,8 @@ sr = SearchRequest.from_dict({"query": {"property": "v", "vectorFlat": {"vector"
 docs = node.search_points_batch_wire(col, [sr])[0]
 assert len(docs) == 5 and docs[0]["_distance"] == 0.0, docs
 node.close()
-assert not [m for m in sys.modules if m.startswith("jax") and sys.modules[m] is not None]
+loaded = [m for m in sys.modules if m.startswith(("jax", "semadb_tpu.")) and sys.modules[m] is not None]
+assert not loaded, loaded
 print("OK")
 """
 
@@ -92,3 +89,54 @@ def test_port_runs_with_jax_blocked():
         [sys.executable, "-c", SLICE], capture_output=True, text=True, env=env, cwd=ROOT, timeout=300
     )
     assert proc.returncode == 0 and proc.stdout.strip().endswith("OK"), proc.stdout + proc.stderr
+
+
+def _copies():
+    for sub in ("models", "store"):
+        for f in sorted(os.listdir(os.path.join(JAX_PKG, sub))):
+            if f.endswith(".py") and (sub, f) != ("store", "native.py"):
+                yield f"{sub}/{f}"
+    yield "utils/compare.py"
+    yield "utils/grow.py"
+
+
+class _Normalize(ast.NodeTransformer):
+    """Name the JAX package where the copy names the port in an import."""
+
+    @staticmethod
+    def _name(name):
+        return "semadb_tpu" + name[len("semadb_tpu_torch"):] if name.startswith("semadb_tpu_torch") else name
+
+    def visit_Import(self, node):
+        for a in node.names:
+            a.name = self._name(a.name)
+        return node
+
+    def visit_ImportFrom(self, node):
+        if node.module:
+            node.module = self._name(node.module)
+        return node
+
+
+def _ast(path, normalize=False):
+    tree = ast.parse(open(path).read(), path)
+    return ast.dump(_Normalize().visit(tree) if normalize else tree)
+
+
+@pytest.mark.parametrize("rel", list(_copies()))
+def test_copied_module_matches_original(rel):
+    """Each copy has the original's AST once its imports name ``semadb_tpu``."""
+    assert _ast(os.path.join(PKG, rel), normalize=True) == _ast(os.path.join(JAX_PKG, rel))
+
+
+def test_every_model_and_store_module_is_copied():
+    for sub in ("models", "store"):
+        want = {f for f in os.listdir(os.path.join(JAX_PKG, sub)) if f.endswith(".py")}
+        have = {f for f in os.listdir(os.path.join(PKG, sub)) if f.endswith(".py")}
+        assert have == want, sub
+
+
+def test_kvstore_source_is_a_byte_copy():
+    with open(os.path.join(ROOT, "native", "kvstore.cpp"), "rb") as a, \
+            open(os.path.join(PKG, "csrc", "kvstore.cpp"), "rb") as b:
+        assert a.read() == b.read()

@@ -8,8 +8,9 @@ then single, batch and select searches and one delete. Every response is
 held against a numpy brute-force hamming scan over the sign bits by the tie
 rule (``semadb_tpu_torch.ops.topk.tie_rule_errors``; bit distances are
 exact), and the two servers against each other the same way. Shard files
-the JAX package wrote — a flushed snapshot, and a snapshot plus journal —
-open in the port.
+either package wrote — a flushed snapshot, and a snapshot plus journal —
+open in the other. Each package gets its own model objects, built from the
+same dicts.
 """
 
 import uuid
@@ -23,13 +24,15 @@ from semadb_tpu.cluster.node import ClusterNode as JaxClusterNode
 from semadb_tpu.cluster.node import ClusterNodeConfig as JaxClusterNodeConfig
 from semadb_tpu.httpapi.server import HttpApiConfig as JaxHttpApiConfig
 from semadb_tpu.httpapi.server import HttpServer as JaxHttpServer
-from semadb_tpu.models import Collection, IndexSchema, Point, SearchRequest, UserPlan
+import semadb_tpu.models as jax_models
+import semadb_tpu_torch.models as port_models
 from semadb_tpu.shard import Shard as JaxShard
-from semadb_tpu.store import open_store
+from semadb_tpu.store import open_store as jax_open_store
 from semadb_tpu_torch.cluster.node import ClusterNode, ClusterNodeConfig
 from semadb_tpu_torch.httpapi.server import HttpApiConfig, HttpServer
 from semadb_tpu_torch.ops.topk import tie_rule_errors
 from semadb_tpu_torch.shard import Shard
+from semadb_tpu_torch.store import open_store
 
 CPU = torch.device("cpu")
 DIM = 1536
@@ -81,13 +84,14 @@ def _check(points, q, live, k=10):
 
 
 def _start(kind, root):
-    plans = {"BASIC": UserPlan(name="BASIC")}
     if kind == "jax":
+        plans = {"BASIC": jax_models.UserPlan(name="BASIC")}
         node = JaxClusterNode(JaxClusterNodeConfig(
             root_dir=root, rpc_host="127.0.0.1", rpc_port=0, max_shard_size=MAX_SHARD_SIZE))
         node.serve()
         srv = JaxHttpServer(node, JaxHttpApiConfig(http_host="127.0.0.1", http_port=0, user_plans=plans))
     else:
+        plans = {"BASIC": port_models.UserPlan(name="BASIC")}
         node = ClusterNode(ClusterNodeConfig(
             root_dir=root, rpc_host="127.0.0.1", rpc_port=0, max_shard_size=MAX_SHARD_SIZE), CPU)
         node.serve()
@@ -208,30 +212,46 @@ def test_flushed_shards_reopen(runs, writer, reader):
         node.close()
 
 
-def test_port_replays_jax_journal(tmp_path):
-    """A JAX shard closed without a final flush: snapshot + journal. The
-    port replays the journal over the snapshot."""
-    col = Collection(user_id="u1", id="c1", index_schema=IndexSchema.from_dict(SCHEMA), user_plan=UserPlan())
-    path = str(tmp_path / "sharddb.sdb")
-    points = [Point.from_map({"vector": VECTORS[i].tolist()}, uuid.UUID(IDS[i])) for i in range(600)]
-    jshard = JaxShard(open_store(path), col)
-    jshard.insert_points(points[:300])
-    jshard.flush()  # snapshot of the first 300
-    jshard.insert_points(points[300:])  # journal only from here on
-    jshard.delete_points({points[7].id, points[450].id})
-    requests_ = [SearchRequest.from_dict(_search_body(q)) for q in QUERIES]
-    jax_docs = jshard.search_points_batch_wire(requests_)
-    jshard.db.close()
+def _open_shard(kind, path):
+    """A shard of ``kind``'s package at ``path``, with that package's own
+    model classes (returned too)."""
+    models = jax_models if kind == "jax" else port_models
+    col = models.Collection(user_id="u1", id="c1", index_schema=models.IndexSchema.from_dict(SCHEMA),
+                            user_plan=models.UserPlan())
+    shard = JaxShard(jax_open_store(path), col) if kind == "jax" else Shard(open_store(path), col, CPU)
+    return shard, models
 
-    shard = Shard(open_store(path), col, CPU)
+
+def _journal_shard(tmp_path, writer, reader):
+    """A shard closed without a final flush: snapshot + journal, written by
+    ``writer`` and opened by ``reader``. Both answer the same searches.
+    Returns the reader's open shard, its model classes and the live mask."""
+    path = str(tmp_path / "sharddb.sdb")
+    shard, models = _open_shard(writer, path)
+    points = [models.Point.from_map({"vector": VECTORS[i].tolist()}, uuid.UUID(IDS[i])) for i in range(600)]
+    shard.insert_points(points[:300])
+    shard.flush()  # snapshot of the first 300
+    shard.insert_points(points[300:])  # journal only from here on
+    shard.delete_points({points[7].id, points[450].id})
+    written_docs = shard.search_points_batch_wire([models.SearchRequest.from_dict(_search_body(q)) for q in QUERIES])
+    shard.db.close()
+
+    shard, models = _open_shard(reader, path)
     assert shard.point_count() == 598
-    port_docs = shard.search_points_batch_wire(requests_)
+    read_docs = shard.search_points_batch_wire([models.SearchRequest.from_dict(_search_body(q)) for q in QUERIES])
     live = np.zeros(N_POINTS, bool)
     live[:600] = True
     live[[7, 450]] = False
-    for q, jrow, trow in zip(QUERIES, jax_docs, port_docs):
-        _check(jrow, q, live)
-        _check(trow, q, live)
+    for q, wrow, rrow in zip(QUERIES, written_docs, read_docs):
+        _check(wrow, q, live)
+        _check(rrow, q, live)
+    return shard, models, live
+
+
+def test_port_replays_jax_journal(tmp_path):
+    """A JAX shard closed without a final flush: snapshot + journal. The
+    port replays the journal over the snapshot."""
+    shard, models, live = _journal_shard(tmp_path, "jax", "port")
     # Filtered search through the index manager: _or of two _id filters
     allowed = list(range(0, 600, 13))
     flt = {"property": "_or", "_or": [
@@ -242,8 +262,16 @@ def test_port_replays_jax_journal(tmp_path):
     body["query"]["vectorFlat"]["filter"] = flt
     fmask = np.zeros(N_POINTS, bool)
     fmask[allowed[:21]] = True
-    (trow,) = shard.search_points_batch_wire([SearchRequest.from_dict(body)])
+    (trow,) = shard.search_points_batch_wire([models.SearchRequest.from_dict(body)])
     _check(trow, QUERIES[0], fmask & live)
+    shard.close()
+
+
+def test_jax_replays_port_journal(tmp_path):
+    """The reverse: a port shard closed without a final flush opens in the
+    JAX package, which replays the port's journal and answers the same
+    searches."""
+    shard, _, _ = _journal_shard(tmp_path, "port", "jax")
     shard.close()
 
 
