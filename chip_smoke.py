@@ -14,8 +14,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (``csrc/kvstore.cpp``) with ``g++`` from the checkout's sources, all three
    at once, timed.
 2. Kernel: K1 against its plain PyTorch version on the card, hamming and
-   jaccard, at B in {1, 7, 64, 1000}, N in {1, 511, 100003}, W in {1, 5, 48}.
-   Hamming must be exactly equal, jaccard within 1e-6 absolute.
+   jaccard, on both of its routes (tensor cores and CUDA cores), at B in
+   {1, 2, 7, 8, 15, 16, 17, 33, 64, 1000} (both sides of the route
+   threshold), N in {1, 511, 100003}, W in {1, 5, 8, 9, 48, 128}, and at
+   B = 4096 over N = 32,768, W = 48 and B = 65,537 (two launches) over
+   N = 511, W = 5. Both metrics must be exactly equal (integer counts and
+   one IEEE f32 division on both sides).
 3. The slice (``semadb_tpu_torch/tools/dbpedia_bq.py``): the port's
    ClusterNode and HTTP v2 server, in-process on ``cuda``, with
    ``config/singleServer.yaml`` (the root dir a temporary directory; the
@@ -26,14 +30,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``ClusterNode.insert_points`` (the call the v2 insert handler makes) in
    batches of 10,000. Then 10 single searches and one batch of 64 over
    HTTP; every result is checked against a numpy brute-force hamming scan
-   over the sign bits by the tie rule. K1's launch count is zeroed before
-   this phase and must be > 0 after it.
-4. Kernel timing at the slice's shapes: B = 1 and 64 over the largest
-   shard's own code table (W = 48). K1 must first equal its plain version
-   on these operands (hamming exactly, jaccard within 1e-6); then, for
-   kernel and plain version, the device
-   time per call (torch.profiler over 30 calls) and the time of a call
-   with its host launch work (median of 30, CUDA events).
+   over the sign bits by the tie rule. K1's launch counts are zeroed
+   before this phase; after it there must be launches at B = 1 and at
+   B > 1, and on each route.
+4. Kernel timing at the slice's shapes: B = 1, 64 and 4096 over the
+   largest shard's own code table (W = 48), the queries being
+   ``dbpedia_bq.queries`` encoded with the shard's threshold. K1 must
+   first equal its plain version on these operands, both metrics, both
+   routes, exactly (at B = 4096 the plain version is compared, not timed).
+   Then each route's device time per call (torch.profiler over 30 calls,
+   K1's own events) twice: warm, back to back, and L2-cold, with 128 MB
+   written and another 128 MB read between calls (the read leaves clean
+   lines, so the kernel pays no write-back of the flush); the cold time is
+   the one set against the bound. Also the plain version's device time
+   and a call's time with its host launch work (median of 30, CUDA
+   events) at B = 1 and 64, and both routes cold at B in {2, 4, 8, 16, 32},
+   where the route threshold lies.
 5. K2 kernel: the gather against its plain PyTorch version on the card,
    exactly (``torch.equal``), through the checked path, at D in {1, 3, 128,
    1536}, n in {1, 1023, 1024, 100003}, cap in {1, 70001}, ids holding 0,
@@ -46,11 +58,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    output must equal ``index_select``'s. K2's launch count is zeroed before
    this phase and must be > 0 after it.
 
-Each kernel's bound is the larger of its bytes (each input read once, each
-output written once; for K2 each distinct row once) over 3.35 TB/s and its
-operations over the card's peak for their type (K1: xor or and/or, popcount
-and add per word pair, against 67 T/s, the card's rate outside the tensor
-cores; K2 does none), computed from this run's inputs.
+Each kernel's bound is its bytes (each input read once, each output
+written once; for K2 each distinct row once) over 3.35 TB/s, from this
+run's inputs. K2 does no arithmetic. K1's work is bit operations, and the
+card's data sheet gives no rate for the tensor cores' single-bit MMA, so
+no operations term can be a least time for it; the term at the int8 rate
+(2 B N 32W / 1.979e15 s) is printed beside the bound for information.
 
 The data are unit-norm 1536-d vectors with an embedding-like spectrum,
 made from ``--seed`` with numpy. Output: progress lines, then the card's
@@ -62,6 +75,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import io
 import json
 import subprocess
@@ -72,12 +86,20 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-KERNEL_SHAPES = [(b, n, w) for b in (1, 7, 64, 1000) for n in (1, 511, 100003) for w in (1, 5, 48)]
-JACCARD_TOL = 1e-6
+KERNEL_SHAPES = [
+    (b, n, w)
+    for b in (1, 2, 7, 8, 15, 16, 17, 33, 64, 1000)
+    for n in (1, 511, 100003)
+    for w in (1, 5, 8, 9, 48, 128)
+] + [(4096, 32768, 48), (65537, 511, 5)]
+TIMED_B = (1, 64, 4096)
+THRESHOLD_B = (2, 4, 8, 16, 32)
 LIMIT = 10
 GATHER_SHAPES = [(d, n, cap) for d in (1, 3, 128, 1536) for n in (1, 1023, 1024, 100003) for cap in (1, 70001)]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-NON_TENSOR_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
+INT8_OPS_PER_S = 1.979e15  # H100 SXM tensor cores, int8 dense
+FLUSH_BYTES = 128 << 20  # written, and as much read, between L2-cold calls
+K1_KERNEL = "bit_distance_kernel"  # in the names of both of K1's routes
 
 
 def log(*parts) -> None:
@@ -135,6 +157,24 @@ def phase_build():
     return hamming, gather
 
 
+def _check_k1(torch, hamming, q, x, what: str) -> float:
+    """K1 on every route against its plain version, both metrics, exactly;
+    returns the largest |error| (0.0 when it passes)."""
+    worst = 0.0
+    for metric in hamming.METRIC_FLAGS:
+        want = hamming.pairwise_bit_distance_plain(q, x, metric)
+        for route in hamming.ROUTES:
+            got = hamming.pairwise_bit_distance_kernel(q, x, metric, route=route)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"K1 {route} {metric} {what}: bad output {tuple(got.shape)}")
+            err = (got - want).abs().max().item()
+            worst = max(worst, err)
+            if not torch.equal(got, want):
+                raise AssertionError(f"K1 {route} {metric} {what}: differs from plain, max |err| {err}")
+    return worst
+
+
 def phase_kernel(torch, hamming, device) -> float:
     gen = torch.Generator(device="cpu").manual_seed(1234)
     worst = 0.0
@@ -143,20 +183,9 @@ def phase_kernel(torch, hamming, device) -> float:
         x = torch.randint(-2**31, 2**31 - 1, (n, w), generator=gen, dtype=torch.int64).to(torch.int32)
         q[0] = 0  # a zero query row: jaccard's empty union against zero codes
         x[0] = 0
-        q, x = q.to(device), x.to(device)
-        for metric, tol in (("hamming", 0.0), ("jaccard", JACCARD_TOL)):
-            got = hamming.pairwise_bit_distance_kernel(q, x, metric)
-            torch.cuda.synchronize()
-            want = hamming.pairwise_bit_distance_plain(q, x, metric)
-            torch.cuda.synchronize()
-            if got.shape != (b, n) or not torch.isfinite(got).all():
-                raise AssertionError(f"K1 {metric} B={b} N={n} W={w}: bad output {tuple(got.shape)}")
-            err = (got - want).abs().max().item()
-            worst = max(worst, err)
-            if err > tol:
-                raise AssertionError(f"K1 {metric} B={b} N={n} W={w}: max |err| {err} > {tol}")
-    log(f"[kernel] K1 == plain at {len(KERNEL_SHAPES)} shapes x 2 metrics "
-        f"(hamming exact, jaccard <= {JACCARD_TOL}); max |err| {worst}")
+        worst = max(worst, _check_k1(torch, hamming, q.to(device), x.to(device), f"B={b} N={n} W={w}"))
+    log(f"[kernel] K1 == plain (torch.equal) at {len(KERNEL_SHAPES)} shapes x 2 metrics x "
+        f"routes {'/'.join(hamming.ROUTES)}; max |err| {worst}")
     return worst
 
 
@@ -164,10 +193,11 @@ def phase_slice(torch, hamming, gather, device, seed: int):
     from semadb_tpu_torch.tools import dbpedia_bq as bq
     from semadb_tpu_torch.vectorstore import bq_encode
 
-    queries = bq.queries(seed, 10 + 64)
+    queries = bq.queries(seed, max(10 + 64, *TIMED_B))
     with tempfile.TemporaryDirectory(prefix="semadb_smoke_") as root:
         cfg = bq.slice_config(root)
         hamming.LAUNCHES = gather.LAUNCHES = 0  # counts from here on are the slice's
+        hamming.LAUNCHES_BY.clear()
         with bq.serving(cfg, device) as srv:
             data = bq.load(srv, seed, bq.N_POINTS)
             counts = data.shard_counts
@@ -192,25 +222,32 @@ def phase_slice(torch, hamming, gather, device, seed: int):
                 check(queries[i], res["points"], f"single search {i}")
             t1 = time.perf_counter()
             res = bq.http_json(srv.base, "POST", f"/{bq.COLLECTION}/points/search/batch",
-                               {"queries": [bq.search_body(q, LIMIT) for q in queries[10:]]})
+                               {"queries": [bq.search_body(q, LIMIT) for q in queries[10:10 + 64]]})
             t_batch = time.perf_counter() - t1
             assert len(res["results"]) == 64
             for i, row in enumerate(res["results"]):
                 check(queries[10 + i], row["points"], f"batch search {i}")
             launches = hamming.LAUNCHES
-            if launches <= 0:
-                raise AssertionError("K1 was never launched by the slice's searches")
+            by = dict(hamming.LAUNCHES_BY)
+            split = {"b1": sum(v for (_, one), v in by.items() if one),
+                     "b_gt1": sum(v for (_, one), v in by.items() if not one)}
+            routes = {r: sum(v for (rr, _), v in by.items() if rr == r) for r in hamming.ROUTES}
+            if split["b1"] <= 0 or split["b_gt1"] <= 0 or min(routes.values()) <= 0:
+                raise AssertionError(f"K1 was not launched at B = 1 and B > 1 on both routes "
+                                     f"by the slice's searches: {by}")
             log(f"[slice] K2 launches during the slice: {gather.LAUNCHES} (no search path gathers through it)")
             p50 = float(np.median(lat)) * 1e3
             log(f"[slice] 10 single searches over HTTP: p50 {p50:.2f} ms (min {min(lat) * 1e3:.2f}, "
                 f"max {max(lat) * 1e3:.2f}); batch of 64: {t_batch * 1e3:.2f} ms; "
                 f"all {10 + 64} match numpy brute force by the tie rule")
-            log(f"[slice] K1 launches during the slice: {launches}; "
+            log(f"[slice] K1 launches during the slice: {launches} ({split['b1']} at B = 1, "
+                f"{split['b_gt1']} at B > 1; by route {routes}); "
                 f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
             # The largest shard's own code table, for the timing phase
             largest = max(srv.shard_indices(), key=len)
             qcodes = bq_encode(torch.from_numpy(queries).to(device), largest.store.state.aux, bq.DIM)
-            return {"launches": launches, "codes": largest.store.state.codes, "qcodes": qcodes}
+            return {"launches": launches, "split": split, "routes": routes,
+                    "codes": largest.store.state.codes, "qcodes": qcodes}
 
 
 def _median_call_ms(torch, fn, runs: int = 30) -> float:
@@ -230,73 +267,108 @@ def _median_call_ms(torch, fn, runs: int = 30) -> float:
     return float(np.median(times))
 
 
-def _device_ms(torch, fn, runs: int = 30):
-    """Device time per call: the profiler's time of every kernel, copy and
-    memset the calls ran on the card, over ``runs`` calls. Only device-side
-    events count (a CPU op's device time repeats its kernels'). Raises if the
-    profiler saw no device activity."""
+def _device_ms(torch, fn, runs: int = 30, before=None, kernel=None):
+    """Device time per call: the profiler's time of the device events over
+    ``runs`` calls of ``fn`` (only events whose name holds ``kernel``, when
+    given; a CPU op's device time repeats its kernels', so only device-side
+    events count). ``before`` runs ahead of each call, outside the count.
+    Raises if the profiler saw no such device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(runs):
+            if before is not None:
+                before()
             fn()
         torch.cuda.synchronize()
     total_us = sum(
-        e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.key)
     )
     if total_us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time; the kernel times cannot be measured")
+        raise RuntimeError(f"torch.profiler recorded no device time of {kernel or 'any kernel'}; "
+                           "the kernel times cannot be measured")
     return total_us / 1e3 / runs
 
 
+def _l2_flush(torch):
+    """A call that writes FLUSH_BYTES and reads as many more, so that the
+    50 MB L2 holds none of the next kernel's operands and no dirty lines."""
+    written = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    read = torch.ones(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+
+    def flush():
+        written.zero_()
+        read.sum()
+
+    return flush
+
+
 def phase_timing(torch, hamming, codes, qcodes) -> dict:
-    """K1 and its plain version at the slice's shapes, on the largest
-    shard's own code table. First both must agree on these operands; then
-    the device time is what the card spends per call, and the call time adds
-    the host's launch work, which bounds a single call of either at these
-    sizes."""
+    """K1's routes and its plain version at the slice's shapes, on the
+    largest shard's own code table. First every route must equal the plain
+    version on these operands; then each route's device time, warm and
+    L2-cold, against the byte bound; the plain version's device time and a
+    call's time with its host launch work at B = 1 and 64; and both routes
+    cold across the route threshold."""
     n, w = codes.shape
+    flush = _l2_flush(torch)
     out = {}
-    for b in (1, 64):
+    for b in TIMED_B:
         q = qcodes[:b].contiguous()
-        err = 0.0
-        for metric, tol in (("hamming", 0.0), ("jaccard", JACCARD_TOL)):
-            got = hamming.pairwise_bit_distance_kernel(q, codes, metric)
-            want = hamming.pairwise_bit_distance_plain(q, codes, metric)
-            e = (got - want).abs().max().item()
-            if not e <= tol:
-                raise AssertionError(f"K1 {metric} on the shard's codes B={b} N={n} W={w}: max |err| {e} > {tol}")
-            err = max(err, e)
-        row = {}
-        for name, fn in (("kernel", hamming.pairwise_bit_distance_kernel),
-                         ("plain", hamming.pairwise_bit_distance_plain)):
-            call = (lambda f: (lambda: f(q, codes, "hamming")))(fn)
-            call_ms = _median_call_ms(torch, call)  # also warms the clocks
-            row[name] = (_device_ms(torch, call), call_ms)
+        err = _check_k1(torch, hamming, q, codes, f"on the shard's codes B={b} N={n} W={w}")
+        row = {"n": n, "w": w, "max_abs_err": err, "route": hamming.route_for(b, w)}
+        for route in hamming.ROUTES:
+            call = functools.partial(hamming.pairwise_bit_distance_kernel, q, codes, "hamming", route=route)
+            call()
+            row[route] = {"warm": _device_ms(torch, call, kernel=K1_KERNEL),
+                          "cold": _device_ms(torch, call, before=flush, kernel=K1_KERNEL)}
+        kernel = functools.partial(hamming.pairwise_bit_distance_kernel, q, codes, "hamming")
+        plain = functools.partial(hamming.pairwise_bit_distance_plain, q, codes, "hamming")
+        if b != TIMED_B[-1]:  # the plain version is compared at B = 4096 but not timed
+            row["call_ms"] = _median_call_ms(torch, kernel)
+            row["plain_call_ms"] = _median_call_ms(torch, plain)
+            row["plain_ms"] = _device_ms(torch, plain)
         moved = n * w * 4 + b * w * 4 + b * n * 4  # codes + queries in, distances out
-        bound_ms, bound_by = _bound_ms(moved, 3 * b * n * w)  # xor, popcount, add per word pair
-        (k_dev, k_call), (p_dev, p_call) = row["kernel"], row["plain"]
-        log(f"[timing] K1 == plain on the shard's codes B={b} (hamming exact, jaccard <= {JACCARD_TOL}); "
+        row["bound_ms"] = _bound_ms(moved)
+        row["int8_ops_ms"] = 2 * b * n * 32 * w / INT8_OPS_PER_S * 1e3
+        row["ms"] = row[row["route"]]["cold"]
+        row["share"] = row["bound_ms"] / row["ms"]
+        times = "; ".join(f"{r} {row[r]['cold']:.5f} ms cold, {row[r]['warm']:.5f} ms warm"
+                          for r in hamming.ROUTES)
+        log(f"[timing] K1 == plain on the shard's codes B={b} N={n} W={w}, both metrics, every route; "
             f"max |err| {err}")
-        log(f"[timing] K1 hamming B={b} N={n} W={w}: kernel {k_dev:.4f} ms on the device "
-            f"({moved / k_dev / 1e6:.1f} GB/s), {k_call:.4f} ms a call; plain {p_dev:.4f} ms on "
-            f"the device, {p_call:.4f} ms a call (call: median of 30; device: mean of 30)")
-        log(f"[timing] K1 B={b} bound {bound_ms:.6f} ms by {bound_by} (bytes {moved} at "
-            f"{HBM_BYTES_PER_S:.3g} B/s: {moved / HBM_BYTES_PER_S * 1e3:.6f} ms); "
-            f"kernel at {bound_ms / k_dev:.1%} of the bound")
-        out[b] = {"ms": k_dev, "plain_ms": p_dev, "call_ms": k_call, "plain_call_ms": p_call,
-                  "n": n, "w": w, "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by}
-    return out
+        log(f"[timing] K1 hamming B={b}: {times} (device time per call, mean of 30)")
+        plain_txt = (f"plain {row['plain_ms']:.5f} ms on the device, {row['plain_call_ms']:.5f} ms a call; "
+                     f"kernel {row['call_ms']:.5f} ms a call (median of 30)" if "plain_ms" in row
+                     else "plain compared, not timed")
+        log(f"[timing] K1 B={b} bound {row['bound_ms']:.6f} ms by bytes ({moved} B at "
+            f"{HBM_BYTES_PER_S:.3g} B/s; the int8-rate operations term, for information: "
+            f"{row['int8_ops_ms']:.6f} ms); the {row['route']} route (the wrapper's at this B) cold "
+            f"at {row['share']:.1%} of the bound; {plain_txt}")
+        out[b] = row
+    sweep = {}
+    for b in THRESHOLD_B:
+        q = qcodes[:b].contiguous()
+        sweep[b] = {}
+        for route in hamming.ROUTES:
+            call = functools.partial(hamming.pairwise_bit_distance_kernel, q, codes, "hamming", route=route)
+            call()
+            sweep[b][route] = _device_ms(torch, call, before=flush, kernel=K1_KERNEL)
+    cold = {b: {r: out[b][r]["cold"] for r in hamming.ROUTES} for b in TIMED_B}
+    cold.update(sweep)
+    log("[timing] K1 hamming cold by B, route threshold TENSOR_MIN_B = "
+        f"{hamming.TENSOR_MIN_B}: " + "; ".join(
+            f"B={b} " + " / ".join(f"{r} {cold[b][r]:.5f}" for r in hamming.ROUTES) for b in sorted(cold)))
+    return {"by_b": out, "threshold_sweep": sweep}
 
 
-def _bound_ms(nbytes: int, ops: int):
-    """The least time for the work: bytes over the memory rate or operations
-    over the non-tensor peak, whichever is larger, and which one it was."""
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / NON_TENSOR_OPS_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+def _bound_ms(nbytes: int) -> float:
+    """The least time for the work: its bytes over the memory rate. (K1's
+    bit operations have no published tensor-core rate to bound them by.)"""
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def _gather_ids(torch, gen, n, cap, device):
@@ -368,7 +440,7 @@ def phase_gatherbench(torch, hamming, gather) -> dict:
         raise AssertionError(f"gatherbench: the kernel's output differs from index_select (rc {rc})")
     if res["platform"] != "cuda" or launches <= 0:
         raise AssertionError(f"gatherbench did not run K2 on the card: {res['platform']}, {launches} launches")
-    bound_ms, bound_by = _bound_ms(res["bound_bytes"], 0)
+    bound_ms, bound_by = _bound_ms(res["bound_bytes"]), "bytes"
     ms = {k: res[f"{k}_s"] * 1e3 for k in ("kernel", "torch", "plain")}
     log(f"[gatherbench] K2 launches: {launches}; K1 launches: {hamming.LAUNCHES}; "
         f"{res['unique_rows']} distinct of {res['rows']} rows of {res['row_bytes']} B")
@@ -400,8 +472,9 @@ def main() -> int:
     hamming, gather = phase_build()
     worst = phase_kernel(torch, hamming, device)
     sl = phase_slice(torch, hamming, gather, device, args.seed)
-    times = phase_timing(torch, hamming, sl["codes"], sl["qcodes"])
-    t64, t1 = times[64], times[1]
+    timing = phase_timing(torch, hamming, sl["codes"], sl["qcodes"])
+    by_b = timing["by_b"]
+    t64 = by_b[64]
     g_worst = phase_gather_kernel(torch, gather, device)
     gb = phase_gatherbench(torch, hamming, gather)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
@@ -412,19 +485,23 @@ def main() -> int:
         "source": "semadb_tpu_torch/csrc/hamming.cu",
         "replaces": "semadb_tpu/ops/pallas/hamming.py:79",
         "launches": sl["launches"],
-        "max_abs_err": max(worst, t64["max_abs_err"], t1["max_abs_err"]),
+        "launches_b1": sl["split"]["b1"],
+        "launches_b_gt1": sl["split"]["b_gt1"],
+        "launches_by_route": sl["routes"],
+        "max_abs_err": max(worst, *(r["max_abs_err"] for r in by_b.values())),
         "ms": t64["ms"],
         "plain_ms": t64["plain_ms"],
         "bound_ms": t64["bound_ms"],
-        "bound_by": t64["bound_by"],
+        "bound_by": "bytes",
         "library_ms": None,
-        "shape": f"hamming B=64 N={t64['n']} W={t64['w']}; device time per call",
+        "shape": (f"hamming B=64 N={t64['n']} W={t64['w']} on the {t64['route']} route; device time "
+                  "per call, L2-cold"),
         "call_ms": t64["call_ms"],
         "plain_call_ms": t64["plain_call_ms"],
-        "ms_b1": t1["ms"],
-        "plain_ms_b1": t1["plain_ms"],
-        "bound_ms_b1": t1["bound_ms"],
-        "bound_by_b1": t1["bound_by"],
+        "by_b": {str(b): {k: r[k] for k in (
+            "route", "ms", "bound_ms", "share", "int8_ops_ms", *hamming.ROUTES, "plain_ms", "call_ms")
+            if k in r} for b, r in by_b.items()},
+        "threshold_sweep_cold_ms": {str(b): v for b, v in timing["threshold_sweep"].items()},
     }, {
         "name": "K2 gather_rows (row gather vectors[ids])",
         "route": "cuda",

@@ -8,10 +8,20 @@ H100 and what the design does about that). It is compiled with ``nvcc`` for
 ``semadb_tpu_torch/_build/`` under a name keyed by a hash of the source and
 flags, and loaded with ``ctypes``.
 
+The source holds two routes of the one kernel: ``tensor_core`` counts
+``|q AND x|`` with the single-bit MMA and derives hamming and jaccard from it
+and the row popcounts; ``cuda_core`` is the first version, one code row a
+thread and ``__popc`` on the integer pipe. :func:`route_for` picks by B alone
+(``TENSOR_MIN_B``, set from the card's timings in ``PERF.md``), except that
+codes wider than ``TENSOR_MAX_W`` words (the schema's 4096 bits) take the
+CUDA-core route, whose shared memory holds them. A failure never picks a
+route: either route raises when it cannot launch.
+
 :func:`pairwise_bit_distance_kernel` is the wrapper the flat index calls. For
 CPU tensors it runs :func:`pairwise_bit_distance_plain`, the plain PyTorch
 version of the same function; for CUDA tensors it launches the kernel or
-raises — it never falls back. ``LAUNCHES`` counts kernel launches.
+raises — it never falls back. ``LAUNCHES`` counts kernel launches and
+``LAUNCHES_BY`` splits them by ``(route, B == 1)``.
 
 Codes are ``int32`` tensors holding the JAX package's ``uint32`` words (the
 same bits): torch's ``uint32`` has too few operators to compute with.
@@ -19,6 +29,7 @@ same bits): torch's ``uint32`` has too few operators to compute with.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 import threading
@@ -30,9 +41,13 @@ from semadb_tpu_torch.utils.build import CSRC_DIR, NVCC_FLAGS, build_library, nv
 
 SOURCE = os.path.join(CSRC_DIR, "hamming.cu")
 METRIC_FLAGS = {C.DISTANCE_HAMMING: 0, C.DISTANCE_JACCARD: 1}
+ROUTES = {"cuda_core": 0, "tensor_core": 1}
 MAX_B_PER_LAUNCH = 65535  # grid.y limit at one query per block row
+TENSOR_MIN_B = 2  # the smallest B that takes the tensor-core route (PERF.md §6)
+TENSOR_MAX_W = 128  # the widest codes the tensor-core route takes (4096 bits)
 
 LAUNCHES = 0
+LAUNCHES_BY: collections.Counter = collections.Counter()  # (route, B == 1) -> launches
 BUILD_LOG = ""  # nvcc's output of the build this process did (ptxas -v)
 
 _LIB = None
@@ -77,11 +92,20 @@ def pairwise_bit_distance_plain(
     return out
 
 
+def route_for(b: int, w: int) -> str:
+    """The route the wrapper takes for ``b`` queries of ``w`` words."""
+    return "tensor_core" if b >= TENSOR_MIN_B and w <= TENSOR_MAX_W else "cuda_core"
+
+
 def pairwise_bit_distance_kernel(
-    queries: torch.Tensor, corpus: torch.Tensor, metric: str
+    queries: torch.Tensor, corpus: torch.Tensor, metric: str, route: str | None = None
 ) -> torch.Tensor:
     """All-pairs bit distance: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. ``queries`` i32[B, W], ``corpus`` i32[N, W]."""
+    version for CPU tensors. ``queries`` i32[B, W], ``corpus`` i32[N, W].
+    ``route`` forces one of ``ROUTES`` (tests and timing); by default
+    :func:`route_for` picks it."""
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"unknown route {route!r}; one of {sorted(ROUTES)}")
     if queries.device.type == "cpu" and corpus.device.type == "cpu":
         return pairwise_bit_distance_plain(queries, corpus, metric)
     _check(queries, corpus, metric)
@@ -96,17 +120,20 @@ def pairwise_bit_distance_kernel(
         stream = torch.cuda.current_stream(queries.device).cuda_stream
         for lo in range(0, B, MAX_B_PER_LAUNCH):
             nb = min(MAX_B_PER_LAUNCH, B - lo)
+            r = route or route_for(nb, W)
             rc = lib.semadb_bit_distance(
                 queries[lo].data_ptr(), corpus.data_ptr(), out[lo].data_ptr(),
-                nb, N, W, METRIC_FLAGS[metric], stream,
+                nb, N, W, METRIC_FLAGS[metric], ROUTES[r], stream,
             )
             if rc != 0:
                 msg = lib.semadb_cuda_error_string(rc).decode()
                 raise RuntimeError(
-                    f"bit distance kernel launch failed ({rc}: {msg}) at B={nb} N={N} W={W}"
+                    f"bit distance kernel launch failed ({rc}: {msg}) on the {r} route "
+                    f"at B={nb} N={N} W={W}"
                 )
             with _LOCK:
                 LAUNCHES += 1
+                LAUNCHES_BY[r, nb == 1] += 1
     return out
 
 
@@ -141,7 +168,7 @@ def _library():
         lib.semadb_bit_distance.restype = ctypes.c_int
         lib.semadb_bit_distance.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p,
         ]
         lib.semadb_cuda_error_string.restype = ctypes.c_char_p

@@ -5,8 +5,9 @@ neither JAX nor the JAX package, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-Tolerances: hamming exact; jaccard within 1e-6 absolute (one IEEE f32
-division on both sides, so in practice exact); the gather exact.
+Tolerances: exact throughout. K1's counts are integers and jaccard is one
+IEEE f32 division of two of them on both sides, on either route; the gather
+copies bits.
 """
 
 import numpy as np
@@ -18,7 +19,11 @@ from semadb_tpu_torch.models.quantizer import BinaryQuantizerParams, Quantizer
 from semadb_tpu_torch.models.schema import VectorFlatParams
 from semadb_tpu_torch.ops.kernels import gather, hamming
 
-CASES = [(1, 1, 1), (7, 511, 5), (33, 700, 48), (64, 4099, 48), (300, 1000, 3)]
+CASES = [
+    (1, 1, 1), (2, 130, 9), (7, 511, 5), (8, 129, 8), (15, 1000, 48), (16, 4099, 48),
+    (17, 333, 3), (33, 700, 48), (64, 4099, 48), (65, 1000, 128), (300, 1000, 3),
+    (4096, 32768, 48), (65537, 64, 5),
+]
 
 
 @pytest.fixture()
@@ -36,17 +41,34 @@ def _codes(gen, rows, w):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("metric,tol", [("hamming", 0.0), ("jaccard", 1e-6)])
+@pytest.mark.parametrize("route", [None, "cuda_core", "tensor_core"])
+@pytest.mark.parametrize("metric", ["hamming", "jaccard"])
 @pytest.mark.parametrize("b,n,w", CASES)
-def test_kernel_matches_plain(cuda, b, n, w, metric, tol):
+def test_kernel_matches_plain(cuda, b, n, w, metric, route):
     gen = torch.Generator().manual_seed(b * 1000 + n + w)
     q, x = _codes(gen, b, w).to(cuda), _codes(gen, n, w).to(cuda)
+    if b > 1:
+        q[1] = -1  # an all-ones query row: the largest counts
     before = hamming.LAUNCHES
-    got = hamming.pairwise_bit_distance_kernel(q, x, metric)
+    got = hamming.pairwise_bit_distance_kernel(q, x, metric, route=route)
     torch.cuda.synchronize()
-    assert hamming.LAUNCHES == before + 1
+    assert hamming.LAUNCHES == before + -(-b // hamming.MAX_B_PER_LAUNCH)
     want = hamming.pairwise_bit_distance_plain(q, x, metric)
-    assert got.shape == (b, n) and (got - want).abs().max().item() <= tol
+    assert got.shape == (b, n) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_kernel_route_by_b(cuda):
+    """Without a forced route, B = 1 takes the CUDA-core route and
+    B >= TENSOR_MIN_B the tensor-core route; each launch is counted under its
+    route and whether B is 1."""
+    x = torch.zeros((100, 48), dtype=torch.int32, device=cuda)
+    for b, key in ((1, ("cuda_core", True)), (hamming.TENSOR_MIN_B, ("tensor_core", False)),
+                   (64, ("tensor_core", False))):
+        assert hamming.route_for(b, 48) == key[0]
+        before = hamming.LAUNCHES_BY[key]
+        hamming.pairwise_bit_distance_kernel(torch.ones((b, 48), dtype=torch.int32, device=cuda), x, "hamming")
+        assert hamming.LAUNCHES_BY[key] == before + 1
 
 
 @pytest.mark.cuda
@@ -61,6 +83,8 @@ def test_kernel_wrapper_refuses_bad_operands(cuda):
         hamming.pairwise_bit_distance_kernel(q, x[:, :3].contiguous(), "hamming")
     with pytest.raises(ValueError, match="cpu"):
         hamming.pairwise_bit_distance_kernel(q.cpu(), x, "hamming")
+    with pytest.raises(ValueError, match="unknown route"):
+        hamming.pairwise_bit_distance_kernel(q, x, "hamming", route="simd")
 
 
 @pytest.mark.cuda
