@@ -858,7 +858,8 @@ def _vec_wire(v) -> bytes:
 
 def _search_request_to_dict(sr: SearchRequest) -> dict:
     """Wire encoding of a SearchRequest (query AST round-trip) for the
-    query types the port serves: vectorFlat, and _id / _and / _or filters."""
+    query types the port serves: vectorFlat, vectorIVF, and _id / _and / _or
+    filters."""
 
     def q_to_dict(q) -> dict:
         out: dict = {"property": q.property}
@@ -866,6 +867,14 @@ def _search_request_to_dict(sr: SearchRequest) -> dict:
             o = q.vector_flat
             out["vectorFlat"] = {
                 "vector": _vec_wire(o.vector), "operator": o.operator, "limit": o.limit,
+                **({"filter": q_to_dict(o.filter)} if o.filter else {}),
+                **({"weight": o.weight} if o.weight is not None else {}),
+            }
+        if q.vector_ivf is not None:
+            o = q.vector_ivf
+            out["vectorIVF"] = {
+                "vector": _vec_wire(o.vector), "operator": o.operator, "limit": o.limit,
+                **({"numProbes": o.num_probes} if o.num_probes else {}),
                 **({"filter": q_to_dict(o.filter)} if o.filter else {}),
                 **({"weight": o.weight} if o.weight is not None else {}),
             }

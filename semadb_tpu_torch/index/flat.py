@@ -83,9 +83,12 @@ class IndexFlat:
         self.store.maybe_fit(self.vectors, self.exists)
 
     def search_batch(
-        self, queries: np.ndarray, k: int, filter_mask: Optional[np.ndarray] = None
+        self, queries: np.ndarray, k: int, num_probes: int = 0,
+        filter_mask: Optional[np.ndarray] = None,
     ) -> tuple[np.ndarray, np.ndarray]:
-        """Exact top-k: (dists f32[B,k], ids i32[B,k]); empty → (inf, -1)."""
+        """Exact top-k: (dists f32[B,k], ids i32[B,k]); empty → (inf, -1).
+        ``num_probes`` is accepted for the IVF index's signature and
+        ignored: a flat scan reads every row."""
         q = torch.from_numpy(np.atleast_2d(np.asarray(queries, np.float32))).to(self.device)
         mask = self.exists
         if filter_mask is not None:

@@ -1,9 +1,10 @@
 """Index manager: schema-driven dispatch of point changes + query execution.
 
 Port of ``semadb_tpu/index/manager.py`` for the index types the port has:
-``vectorFlat``. A schema naming any other index type is refused with a
-``ValidationError`` that names the type (:func:`check_supported`, called
-where a collection is created and where a shard is opened).
+``vectorFlat`` and ``vectorIVF``. A schema naming any other index type, or a
+product quantizer, is refused with a ``ValidationError`` that names it
+(:func:`check_supported`, called where a collection is created and where a
+shard is opened).
 
 Dispatch: for every schema property, diff the old/new msgpack documents to
 classify insert/update/delete/skip, then route the change batch to that
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from semadb_tpu_torch.index.flat import IndexFlat
+from semadb_tpu_torch.index.ivf import IndexIVF
 from semadb_tpu_torch.models import constants as C
 from semadb_tpu_torch.models.errors import NotFoundError, ValidationError
 from semadb_tpu_torch.models.point import SearchResult, access_nested, decode_point_data
@@ -39,7 +41,14 @@ OP_UPDATE = "update"
 OP_DELETE = "delete"
 OP_SKIP = "skip"
 
-SUPPORTED_INDEX_TYPES = (C.INDEX_TYPE_VECTOR_FLAT,)
+# The engine that serves each vector index type: the attribute that holds
+# its parameters in the schema entry and its options in a query, and the
+# device index class
+_ENGINES = {
+    C.INDEX_TYPE_VECTOR_FLAT: ("vector_flat", IndexFlat),
+    C.INDEX_TYPE_VECTOR_IVF: ("vector_ivf", IndexIVF),
+}
+SUPPORTED_INDEX_TYPES = tuple(_ENGINES)
 
 
 def check_supported(schema: IndexSchema) -> None:
@@ -50,12 +59,24 @@ def check_supported(schema: IndexSchema) -> None:
                 f"index type {params.type} (property {prop}) is not supported by "
                 f"semadb_tpu_torch yet; supported: {', '.join(SUPPORTED_INDEX_TYPES)}"
             )
-        p = params.vector_flat
+        p = _vector_params(params)
         cfg = QuantConfig.from_params(p.quantizer, p.vector_size, p.distance_metric)
         if cfg.kind == PRODUCT:
             raise ValidationError(
-                f"product quantizer (property {prop}) is not supported by semadb_tpu_torch yet"
+                f"product quantizer on {params.type} (property {prop}) is not supported by "
+                "semadb_tpu_torch yet"
             )
+
+
+def _vector_params(params):
+    """The engine parameters of a vector index's schema entry."""
+    return getattr(params, _ENGINES[params.type][0])
+
+
+def _vector_options(params, q: Query):
+    """The query options for a vector index's type (None when absent)."""
+    engine = _ENGINES.get(params.type)
+    return None if engine is None else getattr(q, engine[0])
 
 
 def _filters_equal(a, b) -> bool:
@@ -102,18 +123,20 @@ class IndexManager:
     ):
         self.bm = bm
         self.schema = schema
-        self.devices = device_registry  # bucket_name → IndexFlat
+        self.devices = device_registry  # bucket_name → IndexFlat | IndexIVF
         self.device = torch.device(device)
 
     @staticmethod
     def bucket_name(itype: str, prop: str) -> str:
         return f"index/{itype}/{prop}"
 
-    def _device_index(self, prop: str, params, register: bool = False) -> IndexFlat:
-        name = self.bucket_name(C.INDEX_TYPE_VECTOR_FLAT, prop)
+    def _device_index(self, prop: str, params, register: bool = False):
+        """The device index of a property (``params``: its schema entry),
+        created on the manager's device when there is none."""
+        name = self.bucket_name(params.type, prop)
         idx = self.devices.get(name)
         if idx is None:
-            idx = IndexFlat(params, self.device)
+            idx = _ENGINES[params.type][1](_vector_params(params), self.device)
             # Only the write path registers new indices: a search racing a
             # scrap-and-reload must not shadow the reloaded index.
             if register:
@@ -135,7 +158,7 @@ class IndexManager:
         device_deltas: Dict[str, list] = {}
         for prop, items in per_property.items():
             params = self.schema.get(prop)
-            idx = self._device_index(prop, params.vector_flat, register=True)
+            idx = self._device_index(prop, params, register=True)
             delta = [
                 (nid, np.asarray(cur, np.float32) if op != OP_DELETE else None)
                 for nid, cur, op in items
@@ -155,16 +178,15 @@ class IndexManager:
         params = self.schema.get(q.property)
         if params is None:
             raise ValidationError(f"property {q.property} not found in index schema")
-        opts = q.vector_flat
+        opts = _vector_options(params, q)
         if opts is None:
             raise ValidationError(f"search not supported for type {params.type}")
         filter_set = None
         if opts.filter is not None:
             filter_set, _ = self.search(opts.filter)
-        idx = self._device_index(q.property, params.vector_flat)
-        d, i = idx.search_batch(
-            np.asarray(opts.vector, np.float32)[None, :], k=opts.limit,
-            filter_mask=self._filter_mask(idx, filter_set),
+        idx = self._device_index(q.property, params)
+        d, i = self._index_search(
+            idx, opts, np.asarray(opts.vector, np.float32)[None, :], filter_set
         )
         w = opts.weight if opts.weight is not None else 1.0
         rset: Set[int] = set()
@@ -181,8 +203,15 @@ class IndexManager:
             )
         return rset, results
 
+    def _index_search(self, idx, opts, vecs: np.ndarray, filter_set: Optional[Set[int]]):
+        """One search call on a vector index (the flat index ignores the
+        probe count)."""
+        fm = self._filter_mask(idx, filter_set)
+        probes = getattr(opts, "num_probes", 0)
+        return idx.search_batch(vecs, k=opts.limit, num_probes=probes, filter_mask=fm)
+
     @staticmethod
-    def _filter_mask(idx: IndexFlat, filter_set: Optional[Set[int]]) -> Optional[np.ndarray]:
+    def _filter_mask(idx, filter_set: Optional[Set[int]]) -> Optional[np.ndarray]:
         if filter_set is None:
             return None
         mask = np.zeros(idx.capacity, bool)
@@ -221,32 +250,33 @@ class IndexManager:
         filter_set = None
         if o0.filter is not None:
             filter_set, _ = self.search(o0.filter)
-        idx = self._device_index(prop, params.vector_flat)
+        idx = self._device_index(prop, params)
         vecs = np.stack([np.asarray(o.vector, np.float32) for o in opts_list])
-        d, i = idx.search_batch(vecs, k=o0.limit, filter_mask=self._filter_mask(idx, filter_set))
+        d, i = self._index_search(idx, o0, vecs, filter_set)
         valid = (i >= 0) & np.isfinite(d)
         w = o0.weight if o0.weight is not None else 1.0
         return d, i, valid, w
 
     def _batch_plan(self, queries: List[Query]):
-        """(property, params, [opts]) when every query hits the same flat
+        """(property, params, [opts]) when every query hits the same vector
         index with equal non-vector options; None otherwise."""
         q0 = queries[0]
         if q0.property in ("_and", "_or", "_id"):
             return None
         params = self.schema.get(q0.property)
-        if params is None or q0.vector_flat is None:
+        if params is None or _vector_options(params, q0) is None:
             return None
-        o0 = q0.vector_flat
+        o0 = _vector_options(params, q0)
         opts_list = []
         for q in queries:
-            o = q.vector_flat
+            o = _vector_options(params, q)
             if q.property != q0.property or o is None:
                 return None
             if not (
                 o.limit == o0.limit
                 and o.weight == o0.weight
                 and _filters_equal(o.filter, o0.filter)
+                and getattr(o, "num_probes", 0) == getattr(o0, "num_probes", 0)
             ):
                 return None
             opts_list.append(o)

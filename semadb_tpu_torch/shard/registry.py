@@ -15,11 +15,18 @@ from typing import Callable, Optional
 import torch
 
 
+_ARRAYS = (
+    "vectors", "exists", "centroids", "slabs", "slab_sq", "slab_ids", "ovf_vecs", "ovf_ids",
+)
+
+
 def index_nbytes(idx) -> int:
-    """Device bytes held by a flat index: its vectors, live mask and the
-    vector store's tensors (``Tensor.nbytes``, no transfers)."""
+    """Device bytes held by an index: a flat index's vectors, live mask and
+    vector store, an IVF index's vectors, centroids, slabs and overflow
+    (``Tensor.nbytes``, no transfers)."""
     total = 0
-    for arr in (getattr(idx, "vectors", None), getattr(idx, "exists", None)):
+    for name in _ARRAYS:
+        arr = getattr(idx, name, None)
         if isinstance(arr, torch.Tensor):
             total += arr.nbytes
     state = getattr(getattr(idx, "store", None), "state", None)

@@ -1,8 +1,8 @@
 """Shard: the per-shard storage + index engine.
 
 Port of ``semadb_tpu/shard/shard.py`` over the port's engines
-(``vectorFlat`` on an explicit torch device); the journal and snapshot
-formats are the JAX package's, so its shard files open here.
+(``vectorFlat`` and ``vectorIVF`` on an explicit torch device); the journal
+and snapshot formats are the JAX package's, so its shard files open here.
 
 Parity reference: shard/shard.go — CRUD over points inside one store
 transaction with index dispatch, update-merge semantics with the
@@ -10,7 +10,7 @@ transaction with index dispatch, update-merge semantics with the
 point-count bookkeeping, and search post-processing (select with nested
 re-expansion, multi-key sort, offset+limit; shard.go:384-471).
 
-Device-index state (flat index tensors on the device) persists across
+Device-index state (index tensors on the device) persists across
 transactions in a registry (the reference's shared cache manager analog).
 Durability matches bbolt's per-txn guarantee through a delta journal: every
 write txn logs the (node_id, vector) changes it applied to each device
@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from semadb_tpu_torch.index.flat import IndexFlat
+from semadb_tpu_torch.index.ivf import IndexIVF
 from semadb_tpu_torch.index.manager import IndexManager, IndexPointChange, check_supported
 from semadb_tpu_torch.models import constants as C
 from semadb_tpu_torch.models.collection import Collection
@@ -119,7 +120,12 @@ class Shard:
         delta_bytes = sum(len(rec) for _, rec in deltas)
         if arrays is None and not deltas:
             return None, 0, 0
-        if arrays is None:
+        if params.type == C.INDEX_TYPE_VECTOR_IVF:
+            idx = (
+                IndexIVF(params.vector_ivf, self.device) if arrays is None
+                else IndexIVF.from_arrays(params.vector_ivf, arrays, self.device)
+            )
+        elif arrays is None:
             idx = IndexFlat(params.vector_flat, self.device)
         else:
             idx = IndexFlat.from_arrays(params.vector_flat, arrays, self.device)

@@ -14,9 +14,11 @@ Arrays are flattened to "/"-joined paths (the nested ``store`` dict becomes
 port's flat index keeps no dirty-row tracker (the JAX package's flat index
 has none either), so a flush rewrites every chunk of the used rows; rows
 past the engine's ``snapshot_row_bounds`` are never copied off the device.
-The engine hands over tensors (``device_arrays``); their dtype names in the
-meta are numpy's, so a uint32 view of the codes is recorded as ``uint32``
-as the JAX package records it.
+The engine hands over tensors (``device_arrays``, read under its
+``_write_lock`` when it has one); their dtype names in the meta are numpy's,
+so a uint32 view of the codes is recorded as ``uint32`` as the JAX package
+records it. The IVF index hands over no slabs: they are derived state, which
+its ``from_arrays`` rebuilds from ``vectors``.
 
 Invariants:
   - the store write txn is atomic (overlay rollback), so a crashed flush
@@ -27,6 +29,7 @@ Invariants:
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import msgpack
@@ -142,7 +145,13 @@ def _read_rows(arr, n_rows: int) -> np.ndarray:
 def write_snapshot(bucket, idx) -> int:
     """Persist ``idx``'s device state into ``bucket``. Must run inside a
     store write txn. Returns the number of chunk records written."""
-    arrays = _flatten(idx.device_arrays())  # tensors: no readback yet
+    # Writers are excluded while the arrays are read, so the cut is
+    # consistent (IndexIVF also materialises deferred-fit placeholders here)
+    with getattr(idx, "_write_lock", None) or contextlib.nullcontext():
+        return _write_arrays(bucket, _flatten(idx.device_arrays()), idx)
+
+
+def _write_arrays(bucket, arrays: dict, idx) -> int:
     # Row bounds: engines whose big arrays are capacity-padded report the
     # USED row count per path — chunks past it are never written (or read
     # back), so the zero-padded tail of a grown array stays on the device.

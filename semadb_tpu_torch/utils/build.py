@@ -1,8 +1,9 @@
 """Builds one C++ or CUDA source of the port into a shared library at first use.
 
 The library goes into ``semadb_tpu_torch/_build/`` (ignored by git) as
-``<stem>-<hash>.so``, the hash covering the source and the compiler's flags:
-an edited source or flag builds anew, an unchanged one is found built. The
+``<stem>-<hash>.so``, the hash covering the source, the headers it names as
+dependencies and the compiler's flags: an edited source, header or flag
+builds anew, an unchanged one is found built. The
 compiler writes a temporary file that is renamed into place, so processes
 that build the same library at once never load a partial one and never
 share an output with the JAX package's own build (``native/build/``).
@@ -15,7 +16,7 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -42,13 +43,18 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; cannot build the CUDA kernels")
 
 
-def build_library(stem: str, source: str, compiler: str, flags: List[str]) -> Tuple[str, str]:
+def build_library(
+    stem: str, source: str, compiler: str, flags: List[str], deps: Sequence[str] = ()
+) -> Tuple[str, str]:
     """Build ``source`` with ``compiler flags -o <lib> source`` unless a
-    library of this source and these flags exists. Returns the library's
-    path and the compiler's output ("" when it was found built). Raises
-    ``RuntimeError`` when the compiler fails, ``OSError`` when it cannot run."""
-    with open(source, "rb") as f:
-        src = f.read()
+    library of this source, these headers (``deps``) and these flags exists.
+    Returns the library's path and the compiler's output ("" when it was
+    found built). Raises ``RuntimeError`` when the compiler fails,
+    ``OSError`` when it cannot run."""
+    src = b""
+    for path in (source, *deps):
+        with open(path, "rb") as f:
+            src += f.read()
     key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     path = os.path.join(BUILD_DIR, f"{stem}-{key}.so")
     if os.path.exists(path):

@@ -1,13 +1,15 @@
-"""K1, K2 and the flat index on a CUDA card (skipped without one).
+"""K1-K4, the flat index and the IVF index on a CUDA card (skipped without one).
 
 These need the card: the CUDA kernels have no CPU mode. The file imports
 neither JAX nor the JAX package, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-Tolerances: exact throughout. K1's counts are integers and jaccard is one
+Tolerances: K1 and K2 exact. K1's counts are integers and jaccard is one
 IEEE f32 division of two of them on both sides, on either route; the gather
-copies bits.
+copies bits. K3 and K4 sum in another order than their plain versions:
+distances within 1e-5 of the summed terms' magnitude, ids by the tie rule at
+that tolerance.
 """
 
 import numpy as np
@@ -15,9 +17,11 @@ import pytest
 import torch
 
 from semadb_tpu_torch.index.flat import IndexFlat
+from semadb_tpu_torch.index.ivf import IndexIVF
 from semadb_tpu_torch.models.quantizer import BinaryQuantizerParams, Quantizer
-from semadb_tpu_torch.models.schema import VectorFlatParams
-from semadb_tpu_torch.ops.kernels import gather, hamming
+from semadb_tpu_torch.models.schema import VectorFlatParams, VectorIVFParams
+from semadb_tpu_torch.ops.kernels import gather, hamming, ivf_rerank, ivf_scan
+from semadb_tpu_torch.ops.topk import tie_rule_errors
 
 CASES = [
     (1, 1, 1), (2, 130, 9), (7, 511, 5), (8, 129, 8), (15, 1000, 48), (16, 4099, 48),
@@ -165,3 +169,149 @@ def test_gather_kernel_reports_bad_ids(cuda):
         gather.gather_rows(vectors, torch.zeros(1000, dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError, match="cpu"):
         gather.gather_rows_padded(vectors, torch.zeros(4, dtype=torch.int32))
+
+
+# (B, p, S, r, rr, bf16 slabs, mask)
+IVF_SCAN_CASES = [
+    (1, 1, 64, 3, 20, False, False), (7, 5, 128, 100, 64, True, True), (64, 24, 192, 128, 256, False, True),
+    (64, 96, 64, 100, 64, True, False), (4096, 24, 128, 128, 64, False, False),
+    (4096, 24, 128, 128, 64, True, True), (3, 40, 1024, 8, 2048, False, False),
+]
+IVF_RTOL = 1e-5
+
+
+def _rows_agree(want, got, dist_of, atol):
+    """Every row of got (d, i) against want by the tie rule; unique ids."""
+    wd, wi = (t.cpu().numpy() for t in want)
+    gd, gi = (t.cpu().numpy() for t in got)
+    assert gd.shape == wd.shape
+    for b in range(wd.shape[0]):
+        errs = tie_rule_errors(wd[b], wi[b].tolist(), gd[b], gi[b].tolist(),
+                               lambda i, b=b: dist_of(b, i), atol=float(atol[b]))
+        assert not errs, (b, errs[:3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,p,s,r,rr,bf16,masked", IVF_SCAN_CASES)
+def test_ivf_probe_scan_matches_plain(cuda, b, p, s, r, rr, bf16, masked):
+    gen = torch.Generator().manual_seed(b + 10 * p + s + r + rr)
+    c = max(2 * p, 32)
+    rows = torch.randn((c, s, r), generator=gen)
+    ids = (torch.randperm(c * s, generator=gen).reshape(c, s) + 2).to(torch.int32)
+    nil = torch.rand((c, s), generator=gen) < 0.3
+    ids[nil] = -1
+    rows[nil] = 0.0
+    slabs = rows.to(torch.bfloat16) if bf16 else rows
+    sq = (rows * rows).sum(-1)
+    qp = torch.randn((b, r), generator=gen)
+    probe = torch.argsort(torch.rand((b, c), generator=gen), dim=1)[:, :p].to(torch.int32).contiguous()
+    mask = (torch.rand(c * s + 2, generator=gen) < 0.5).to(torch.uint8) if masked else None
+    ops = [t if t is None else t.to(cuda) for t in (qp, probe, slabs, sq, ids, mask)]
+    before = ivf_scan.LAUNCHES
+    got = ivf_scan.ivf_probe_scan(*ops, rr)
+    torch.cuda.synchronize()
+    assert ivf_scan.LAUNCHES == before + 1
+    want = ivf_scan.ivf_probe_scan_plain(*ops, rr)
+    flat_ids = ids.reshape(-1)
+    x = slabs.float().reshape(-1, r).double()
+
+    def dist_of(bb, i):
+        if i == -1:
+            return float("inf")
+        cell = int((flat_ids == i).nonzero()[0, 0])
+        return float(sq.reshape(-1)[cell]) - 2.0 * float(x[cell] @ qp[bb].double())
+
+    xmax = float(x.norm(dim=1).max())
+    atol = IVF_RTOL * (xmax * xmax + 2.0 * xmax * qp.double().norm(dim=1))
+    _rows_agree(want, got, dist_of, atol)
+
+
+IVF_RERANK_CASES = [(1, 3, 1, "euclidean"), (7, 128, 10, "dot"), (64, 1536, 100, "cosine"),
+                    (4096, 128, 10, "euclidean"), (33, 100, 10, "euclidean"), (5, 8, 100, "dot")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,k,metric", IVF_RERANK_CASES)
+def test_ivf_exact_rerank_matches_plain(cuda, b, d, k, metric):
+    gen = torch.Generator().manual_seed(b + d + k)
+    cap = 3000
+    vectors = torch.randn((cap, d), generator=gen)
+    queries = torch.randn((b, d), generator=gen)
+    if metric == "cosine":
+        vectors = vectors / vectors.norm(dim=1, keepdim=True)
+        queries = queries / queries.norm(dim=1, keepdim=True)
+    rr = max(64, 2 * k)
+    pool = torch.stack([torch.randperm(cap, generator=gen)[:rr] for _ in range(b)]).to(torch.int32)
+    coarse = torch.randn((b, rr), generator=gen)
+    coarse[torch.rand((b, rr), generator=gen) < 0.2] = float("inf")
+    pool[torch.rand((b, rr), generator=gen) < 0.05] = -1
+    ops = [t.to(cuda) for t in (vectors, queries, pool, coarse)]
+    before = ivf_rerank.LAUNCHES
+    got = ivf_rerank.ivf_exact_rerank(*ops, k, metric)
+    torch.cuda.synchronize()
+    assert ivf_rerank.LAUNCHES == before + 1
+    want = ivf_rerank.ivf_exact_rerank_plain(*ops, k, metric)
+
+    def dist_of(bb, i):
+        if i == -1:
+            return float("inf")
+        x, q = vectors[i].double(), queries[bb].double()
+        if metric == "euclidean":
+            return float(((x - q) ** 2).sum())
+        return 1.0 - float(x @ q) if metric == "cosine" else -float(x @ q)
+
+    xmax = float(vectors.norm(dim=1).max())
+    atol = IVF_RTOL * ((xmax + queries.double().norm(dim=1)) ** 2 + 1.0)
+    _rows_agree(want, got, dist_of, atol)
+
+
+@pytest.mark.cuda
+def test_ivf_kernel_wrappers_refuse_bad_operands(cuda):
+    qp = torch.zeros((2, 8), device=cuda)
+    probe = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    slabs = torch.zeros((4, 16, 8), device=cuda)
+    sq = torch.zeros((4, 16), device=cuda)
+    ids = torch.full((4, 16), -1, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        ivf_scan.ivf_probe_scan(qp, probe.long(), slabs, sq, ids, None, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ivf_scan.ivf_probe_scan(qp.cpu(), probe, slabs, sq, ids, None, 8)
+    with pytest.raises(ValueError, match="rr"):
+        ivf_scan.ivf_probe_scan(qp, probe, slabs, sq, ids, None, 4097)
+    d, i = ivf_scan.ivf_probe_scan(qp, probe, slabs, sq, ids, None, 8)
+    assert torch.isinf(d).all() and (i == -1).all()  # every slot NIL
+    vectors = torch.zeros((10, 8), device=cuda)
+    pool = torch.zeros((2, 5), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="metrics"):
+        ivf_rerank.ivf_exact_rerank(vectors, qp, pool, torch.zeros((2, 5), device=cuda), 3, "hamming")
+    with pytest.raises(ValueError, match="CUDA"):
+        ivf_rerank.ivf_exact_rerank(vectors, qp.cpu(), pool, torch.zeros((2, 5), device=cuda), 3, "dot")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("copies,bf16", [(1, False), (2, False), (2, True)])
+def test_ivf_index_on_card_matches_cpu(cuda, copies, bf16, monkeypatch):
+    """An IVF index built on the card runs K3 and K4, and the same arrays
+    loaded on the CPU (plain versions) give the same results by the tie rule."""
+    import semadb_tpu_torch.index.ivf as ivf_mod
+
+    if bf16:
+        monkeypatch.setattr(ivf_mod, "SLAB_BF16_BYTES", 1)
+    rng = np.random.default_rng(copies)
+    cents = rng.standard_normal((40, 32)).astype(np.float32) * 4
+    vecs = (cents[rng.integers(0, 40, 5000)] + rng.standard_normal((5000, 32))).astype(np.float32)
+    params = VectorIVFParams(vector_size=32, distance_metric="euclidean", assign_copies=copies)
+    on_card = IndexIVF(params, cuda)
+    on_card.insert_bulk(np.arange(2, 5002), vecs)
+    assert on_card._n_at_fit == 5000 and (on_card.slabs.dtype == torch.bfloat16) == bf16
+    on_cpu = IndexIVF.from_arrays(params, on_card.to_arrays(), torch.device("cpu"))
+    queries = rng.standard_normal((50, 32)).astype(np.float32) * 4
+    before = (ivf_scan.LAUNCHES, ivf_rerank.LAUNCHES)
+    d_card, i_card = on_card.search_batch(queries, 10)
+    assert ivf_scan.LAUNCHES == before[0] + 1 and ivf_rerank.LAUNCHES == before[1] + 1
+    d_cpu, i_cpu = on_cpu.search_batch(queries, 10)
+    for b in range(len(queries)):
+        dist = ((vecs.astype(np.float64) - queries[b]) ** 2).sum(-1)
+        errs = tie_rule_errors(d_cpu[b], i_cpu[b].tolist(), d_card[b], i_card[b].tolist(),
+                               lambda i: dist[i - 2], atol=1e-4 * max(1.0, float(d_cpu[b, -1])))
+        assert not errs, (b, errs[:3])

@@ -5,7 +5,9 @@ An ``ast`` walk of ``semadb_tpu_torch/`` and ``chip_smoke.py`` finds no
 imports every module of the port and runs a tiny slice on ``cpu``. The host
 modules the port keeps its own copies of (``models/``, ``store/``,
 ``utils/{compare,grow}.py``, ``csrc/kvstore.cpp``) stay the same as the JAX
-package's originals, apart from their imports and the store's native build.
+package's originals, apart from their imports and the store's native build;
+so do the definitions it copies from ``utils/pipeline.py`` (all but the
+readback) and ``tools/datasets.py`` (the host generator and ground truth).
 """
 
 import ast
@@ -127,6 +129,39 @@ def _ast(path, normalize=False):
 def test_copied_module_matches_original(rel):
     """Each copy has the original's AST once its imports name ``semadb_tpu``."""
     assert _ast(os.path.join(PKG, rel), normalize=True) == _ast(os.path.join(JAX_PKG, rel))
+
+
+def _top_defs(path, names=None, drop=()):
+    """{name: AST dump} of the module's top-level functions and classes
+    (those in ``names``, or all), imports normalized, leaving out the class
+    members named in ``drop``."""
+    tree = _Normalize().visit(ast.parse(open(path).read(), path))
+    out = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and (names is None or node.name in names):
+            if isinstance(node, ast.ClassDef):
+                node.body = [n for n in node.body if getattr(n, "name", None) not in drop]
+            out[node.name] = ast.dump(node)
+    return out
+
+
+# (module, the definitions copied (None: all), members that differ on purpose)
+PARTIAL_COPIES = [
+    # AsyncDispatcher._materialise reads tensors back with .cpu() where the
+    # original maps jax.tree over np.asarray
+    ("utils/pipeline.py", None, ("_materialise",)),
+    ("tools/datasets.py", ("AnnDataset", "embedding_like", "compute_ground_truth"), ()),
+]
+
+
+@pytest.mark.parametrize("rel,names,drop", PARTIAL_COPIES, ids=[c[0] for c in PARTIAL_COPIES])
+def test_copied_definitions_match_original(rel, names, drop):
+    """The definitions the port copies from a module have the original's AST."""
+    port = _top_defs(os.path.join(PKG, rel), names, drop)
+    orig = _top_defs(os.path.join(JAX_PKG, rel), names, drop)
+    assert set(port) == set(orig) == (set(names) if names else set(orig))
+    for name in orig:
+        assert port[name] == orig[name], f"{rel}: {name} differs from the original"
 
 
 def test_every_model_and_store_module_is_copied():
