@@ -61,24 +61,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 7. K3 and K4 (``csrc/ivf_scan.cu``, ``csrc/ivf_rerank.cu``, the IVF query's
    probed-slab scan and exact rerank) against their plain PyTorch versions on
-   the card: K3 at B in {1, 7, 64, 4096}, p in {1, 5, 24, 96}, S in {64,
-   128, 192}, r in {3, 100, 128}, rr in {20, 64, 256}, f32 and bf16 slabs,
-   30% NIL slots, with and without a filter mask (every value of each
-   parameter, in 20 combinations); K4 at D in {3, 128, 1536}, k in {1, 10,
-   100}, all three metrics (27 combinations). Distances must agree within
-   1e-5 of the summed terms' magnitude (the sums run in another order), ids
-   by the tie rule at that tolerance.
+   the card: K3 at B in {1, 7, 64, 4096}, p in {1, 5, 24, 96}, S in {64, 128, 192}, r in {3,
+   100, 128}, rr in {20, 64, 256}, f32 and bf16 slabs, 30% NIL slots, with
+   and without a filter mask (every value of each parameter, in 20
+   combinations), the bench cell's shape, and the layouts a batch meets:
+   every query on the same 24 probes (B = 4096, the load imbalance), ids
+   stored in two clusters, live prefixes with holes (a refit's packing, then
+   deletes), and a scratch budget patched small so that B runs in chunks;
+   K4 at D in {3, 128, 1536}, k in {1, 10, 100}, all three metrics (27
+   combinations), and pools that hold ids two or three times, deduplicated
+   by the kernel (9 more). Distances must agree within 1e-5 of the summed
+   terms' magnitude (the sums run in another order), ids by the tie rule at
+   that tolerance, pools as multisets.
 8. The IVF bench cell: ``semadb_tpu_torch.tools.annbench.main`` at its
    defaults on ``cuda`` (the JAX package's default ``python bench.py``:
    1,000,000 x 128 ``embedding_like(spread=0.5, seed=42)``, euclidean,
    assignCopies 2, 32,768 queries in batches of 4,096, k = 10): recall@10
    against the exact f32 ground truth must be >= 0.99 and K3 and K4 must
-   have launched; it prints the build's split, QPS, peak device memory, a
-   torch.profiler pass over one batch and the batch stage by stage (CUDA
-   events). Then K3 and K4 on the cell's own
-   operands (4,096 queries): checked against their plain versions, timed
-   (device time per call, torch.profiler, mean of 20), the plain versions
-   timed, and set against their byte bounds.
+   have launched; it prints the build's split, QPS, peak device memory and
+   a torch.profiler pass over one batch, stage by stage. Then K3 and K4 on
+   the cell's own operands (4,096 queries): checked against their plain
+   versions, timed (torch.profiler, mean of 20 calls; K3's time is every
+   device event of its calls, its five kernels and its memset, and each must
+   have recorded one launch a call), the plain versions timed, and set
+   against their byte bounds; K3 also at B from 1 to 4,096 (the cell's first
+   B queries).
 8b. ``vectorIVF`` over HTTP v2: the port's node and server with
    ``config/singleServer.yaml``, a 128-d euclidean ``vectorIVF`` collection
    of 20,000 points (``embedding_like``, the bench cell's generator and
@@ -298,15 +305,13 @@ def _median_call_ms(torch, fn, runs: int = 30) -> float:
     return float(np.median(times))
 
 
-def _device_ms(torch, fn, runs: int = 30, before=None, kernel=None):
-    """Device time per call: the profiler's time of the device events over
-    ``runs`` calls of ``fn`` (only events whose name holds ``kernel``, when
-    given, averaged over the launches recorded; a CPU op's device time
-    repeats its kernels', so only device-side events count). ``before``
-    runs ahead of each call, outside the count. The window opens with
-    untimed spin kernels (``annbench.prime_profiler``): in this script's
-    process the profiler missed the first two or three device events of a
-    window. Raises if the profiler saw no such device activity."""
+def _device_events(torch, fn, runs: int = 30, before=None) -> dict:
+    """``{name: (launches, device us)}`` of the device events the profiler
+    recorded over ``runs`` calls of ``fn`` (a CPU op's device time repeats
+    its kernels', so only device-side events count). ``before`` runs ahead of
+    each call, outside the count. The window opens with untimed spin kernels
+    (``annbench.prime_profiler``): in this script's process the profiler
+    missed the first two or three device events of a window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -320,15 +325,43 @@ def _device_ms(torch, fn, runs: int = 30, before=None, kernel=None):
                 before()
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and PRIME_KERNEL not in e.key
-              and (kernel is None or kernel in e.key)]
-    total_us = sum(e.self_device_time_total for e in events)
+    return {e.key: (e.count, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and PRIME_KERNEL not in e.key}
+
+
+def _device_ms(torch, fn, runs: int = 30, before=None, kernel=None):
+    """Device time per call: the time of the device events over ``runs``
+    calls of ``fn`` (only events whose name holds ``kernel``, when given,
+    averaged over the launches recorded). Raises if the profiler saw no such
+    device activity."""
+    events = {k: v for k, v in _device_events(torch, fn, runs, before).items() if kernel is None or kernel in k}
+    total_us = sum(us for _, us in events.values())
     if total_us <= 0:
         raise RuntimeError(f"torch.profiler recorded no device time of {kernel or 'any kernel'}; "
                            "the kernel times cannot be measured")
-    calls = sum(e.count for e in events) if kernel is not None else runs
+    calls = sum(n for n, _ in events.values()) if kernel is not None else runs
     return total_us / 1e3 / calls
+
+
+def _k3_device_ms(torch, ivf_scan, ops, chunks: int = 1, runs: int = 20) -> dict:
+    """K3's device time per call: every device event of the calls (its
+    kernels and the memset of its work area) over the calls. Each kernel, and
+    the memset, must have recorded one launch a call and chunk, or the
+    profiler lost events and the mean would be wrong."""
+    events = _device_events(torch, functools.partial(ivf_scan.ivf_probe_scan, *ops), runs)
+    names = ivf_scan.KERNELS + ("Memset",)
+    by = {}
+    for name in names:
+        hits = [(n, us) for key, (n, us) in events.items() if name in key]
+        launches = sum(n for n, _ in hits)
+        if launches != runs * chunks:
+            raise AssertionError(f"K3: {name} recorded {launches} launches in {runs} calls of {chunks} chunk(s): "
+                                 f"{sorted(events)}")
+        by[name] = sum(us for _, us in hits) / 1e3 / runs
+    other = {k for k in events if not any(name in k for name in names)}
+    if other:
+        raise AssertionError(f"K3: device events that are not K3's: {sorted(other)}")
+    return {"ms": sum(by.values()), "by_kernel_ms": by, "kernels_per_call": len(names) * chunks}
 
 
 def _l2_flush(torch):
@@ -494,6 +527,7 @@ def phase_gatherbench(torch, hamming, gather) -> dict:
 
 K3_BS, K3_PS, K3_SS, K3_RS, K3_RRS = (1, 7, 64, 4096), (1, 5, 24, 96), (64, 128, 192), (3, 100, 128), (20, 64, 256)
 K4_DS, K4_KS = (3, 128, 1536), (1, 10, 100)
+K3_SWEEP_B = (1, 2, 4, 8, 16, 32, 64, 256, 1024, 4096)
 IVF_RTOL = 1e-5  # of the magnitude of the summed terms: the sums run in another order
 IVF_TIMED_RUNS = 20
 HTTP_IVF_POINTS = 20_000
@@ -508,56 +542,52 @@ LIBRARY_NONE_K4 = ("none: no single PyTorch call gathers pool rows and takes an 
 
 def k3_cases():
     """Every value of each K3 parameter, in 20 combinations: the 16 (B, p)
-    pairs with S, r, rr, slab type and mask cycling, plus the bench cell's
-    shape (B 4096, p 24, S 128, r 128, rr 64) in both slab types, with and
-    without a mask."""
+    pairs with S, r, rr, slab type and mask cycling; the bench cell's shape
+    (B 4096, p 24, S 128, r 128, rr 64) in both slab types, with and without
+    a mask; and the layouts of a batch at the cell's widths: every query on
+    the same probes, ids in two clusters, holes in the live prefixes, and B
+    in chunks. Each is (B, p, S, r, rr, bf16, mask, layout)."""
     cases = []
     for i, (b, p) in enumerate((b, p) for b in K3_BS for p in K3_PS):
-        cases.append((b, p, K3_SS[i % 3], K3_RS[(i // 3) % 3], K3_RRS[(i + 1) % 3], i % 2 == 1, (i // 2) % 2 == 1))
-    cases += [(4096, 24, 128, 128, 64, bf16, mask) for bf16 in (False, True) for mask in (False, True)]
+        cases.append((b, p, K3_SS[i % 3], K3_RS[(i // 3) % 3], K3_RRS[(i + 1) % 3], i % 2 == 1, (i // 2) % 2 == 1,
+                      None))
+    cases += [(4096, 24, 128, 128, 64, bf16, mask, None) for bf16 in (False, True) for mask in (False, True)]
+    cases += [
+        (4096, 24, 128, 128, 64, False, False, "same-probes"),
+        (64, 24, 128, 128, 64, True, True, "same-probes"),
+        (4096, 24, 128, 128, 64, False, False, "copies"),
+        (7, 5, 64, 100, 20, True, True, "copies"),
+        (4096, 24, 128, 128, 64, False, True, "holes"),
+        (64, 8, 192, 3, 256, True, False, "holes"),
+        (1000, 24, 128, 128, 64, False, True, "chunked"),
+        (3, 40, 1024, 8, 2048, False, False, "chunked"),
+    ]
     return cases
 
 
 def k4_cases():
     """D x k x metric, 27 combinations; B cycles through 1, 7, 64 and 4096
-    (4096 only at D = 128, where the bench cell runs)."""
+    (4096 only at D = 128, where the bench cell runs); then D x metric with
+    pools that repeat ids, deduplicated by the kernel. Each is (B, D, k,
+    metric, dedup)."""
     cases = []
     for i, (d, k, metric) in enumerate(
             (d, k, m) for d in K4_DS for k in K4_KS for m in ("euclidean", "dot", "cosine")):
         b = 4096 if d == 128 and i % 3 == 0 else (1, 7, 64)[i % 3]
-        cases.append((b, d, k, metric))
+        cases.append((b, d, k, metric, False))
+    for d in K4_DS:
+        for metric in ("euclidean", "dot", "cosine"):
+            cases.append((4096 if d == 128 and metric == "euclidean" else 64, d, 10, metric, True))
     return cases
 
 
-def pool_errors(want_d, want_i, got_d, got_i, dist_of, atol) -> list:
-    """The tie rule for one row of a pool that may hold an id twice (points
-    with copies): distances equal within ``atol`` place by place; the
-    multiset of ids below the last reference distance equal; every other
-    returned id carries that distance (``dist_of``), or is -1 at inf."""
-    import collections
-
-    errs = [f"place {j}: {g} != {w}" for j, (w, g) in enumerate(zip(want_d, got_d))
-            if not (w == g or abs(w - g) <= atol)]
-    if errs:
-        return errs[:3]
-    dk = want_d[-1]
-    below_w = collections.Counter(i for d, i in zip(want_d, want_i) if d < dk - atol)
-    below_g = collections.Counter(i for d, i in zip(got_d, got_i) if d < dk - atol)
-    if below_w != below_g:
-        return [f"ids below the last distance differ: {below_w - below_g} / {below_g - below_w}"]
-    for d, i in zip(got_d, got_i):
-        if d >= dk - atol:
-            true = float("inf") if i == -1 else float(dist_of(i))
-            if not (true == d or abs(true - d) <= atol):
-                return [f"id {i} at distance {d} has distance {true}"]
-    return []
-
-
 def check_rows(torch, want, got, dist_of, atol, what) -> float:
-    """Hold every row of ``got`` (d, i) against ``want`` by
-    :func:`pool_errors`; rows that match exactly (ids equal, distances
-    within atol) need no lookups. Returns the largest |error| of the finite
-    distances."""
+    """Hold every row of ``got`` (d, i) against ``want`` by the multiset tie
+    rule (``ops.topk.pool_errors``); rows that match exactly (ids equal,
+    distances within atol) need no lookups. Returns the largest |error| of
+    the finite distances."""
+    from semadb_tpu_torch.ops.topk import pool_errors
+
     wd, wi = (t.cpu() for t in want)
     gd, gi = (t.cpu() for t in got)
     if gd.shape != wd.shape or gi.shape != wi.shape:
@@ -579,17 +609,27 @@ def check_rows(torch, want, got, dist_of, atol, what) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
-def _k3_operands(torch, gen, b, p, s, r, bf16, masked, device):
+def _k3_operands(torch, gen, b, p, s, r, bf16, masked, device, layout=None):
     c = max(2 * p, 32)
     rows = torch.randn((c, s, r), generator=gen)
     ids = (torch.randperm(c * s, generator=gen).reshape(c, s) + 2).to(torch.int32)
     nil = torch.rand((c, s), generator=gen) < 0.3
+    if layout == "holes":  # live prefixes of random length, 10% of them deleted
+        fill = torch.randint(s // 2, s + 1, (c, 1), generator=gen)
+        nil = (torch.arange(s)[None, :] >= fill) | (torch.rand((c, s), generator=gen) < 0.1)
     ids[nil] = -1
     rows[nil] = 0.0
+    if layout == "copies":  # each cluster's first quarter also fills the next cluster's last slots
+        q4 = s // 4
+        ids[:, s - q4:] = ids.roll(1, dims=0)[:, :q4].clone()
+        rows[:, s - q4:] = rows.roll(1, dims=0)[:, :q4].clone()
     slabs = rows.to(torch.bfloat16) if bf16 else rows
     slab_sq = (rows * rows).sum(-1)
     qp = torch.randn((b, r), generator=gen)
-    probe = torch.argsort(torch.rand((b, c), generator=gen), dim=1)[:, :p].to(torch.int32).contiguous()
+    if layout == "same-probes":
+        probe = torch.randperm(c, generator=gen)[:p].to(torch.int32).expand(b, p).contiguous()
+    else:
+        probe = torch.argsort(torch.rand((b, c), generator=gen), dim=1)[:, :p].to(torch.int32).contiguous()
     mask = (torch.rand(c * s + 2, generator=gen) < 0.5).to(torch.uint8) if masked else None
     ops = [qp, probe, slabs, slab_sq, ids, mask]
     return [None if t is None else t.to(device) for t in ops]
@@ -636,15 +676,24 @@ def phase_ivf_kernels(torch, ivf_scan, ivf_rerank, device) -> dict:
     """K3 and K4 against their plain versions at every listed shape."""
     gen = torch.Generator().manual_seed(2468)
     worst3 = worst4 = 0.0
-    for b, p, s, r, rr, bf16, masked in k3_cases():
-        ops = _k3_operands(torch, gen, b, p, s, r, bf16, masked, device)
-        what = f"K3 B={b} p={p} S={s} r={r} rr={rr} {'bf16' if bf16 else 'f32'} mask={masked}"
-        got = ivf_scan.ivf_probe_scan(*ops, rr)
-        torch.cuda.synchronize()
+    chunked = []
+    for b, p, s, r, rr, bf16, masked, layout in k3_cases():
+        ops = _k3_operands(torch, gen, b, p, s, r, bf16, masked, device, layout)
+        what = f"K3 B={b} p={p} S={s} r={r} rr={rr} {'bf16' if bf16 else 'f32'} mask={masked} layout={layout}"
         want = ivf_scan.ivf_probe_scan_plain(*ops, rr)
-        worst3 = max(worst3, check_rows(torch, want, got, _k3_dist_of(torch, ops[0], ops[2], ops[3], ops[4]),
-                                        _k3_atol(torch, ops[0], ops[2]), what))
-    for b, d, k, metric in k4_cases():
+        dist_of = _k3_dist_of(torch, ops[0], ops[2], ops[3], ops[4])
+        atol = _k3_atol(torch, ops[0], ops[2])
+        budget = ivf_scan.SCRATCH_BYTES
+        if layout == "chunked":  # about 8 chunks
+            ivf_scan.SCRATCH_BYTES = p * s * 4 * max(1, b // 8)
+            chunked.append((b, ivf_scan.batch_chunk(b, p, s)))
+        try:
+            got = ivf_scan.ivf_probe_scan(*ops, rr)
+            torch.cuda.synchronize()
+            worst3 = max(worst3, check_rows(torch, want, got, dist_of, atol, what))
+        finally:
+            ivf_scan.SCRATCH_BYTES = budget
+    for b, d, k, metric, dedup in k4_cases():
         cap = 5000
         vectors = torch.randn((cap, d), generator=gen)
         if metric == "cosine":
@@ -654,20 +703,28 @@ def phase_ivf_kernels(torch, ivf_scan, ivf_rerank, device) -> dict:
             queries = queries / queries.norm(dim=1, keepdim=True)
         rr = max(64, 2 * k)
         pool = torch.stack([torch.randperm(cap, generator=gen)[:rr] for _ in range(b)]).to(torch.int32)
+        if dedup:  # a quarter of the slots repeat another slot's id
+            again = torch.rand((b, rr), generator=gen) < 0.25
+            pool = torch.where(again, torch.gather(pool, 1, torch.randint(0, rr, (b, rr), generator=gen)), pool)
         coarse = torch.randn((b, rr), generator=gen)
         empty = torch.rand((b, rr), generator=gen) < 0.2
         coarse[empty] = float("inf")
         pool[empty & (torch.rand((b, rr), generator=gen) < 0.5)] = -1
         vectors, queries, pool, coarse = (t.to(device) for t in (vectors, queries, pool, coarse))
-        what = f"K4 B={b} D={d} k={k} {metric}"
-        got = ivf_rerank.ivf_exact_rerank(vectors, queries, pool, coarse, k, metric)
+        what = f"K4 B={b} D={d} k={k} {metric} dedup={dedup}"
+        got = ivf_rerank.ivf_exact_rerank(vectors, queries, pool, coarse, k, metric, dedup)
         torch.cuda.synchronize()
-        want = ivf_rerank.ivf_exact_rerank_plain(vectors, queries, pool, coarse, k, metric)
+        want = ivf_rerank.ivf_exact_rerank_plain(vectors, queries, pool, coarse, k, metric, dedup)
+        if dedup:
+            gi = got[1].cpu()
+            if any(len(set(row[row >= 0].tolist())) != int((row >= 0).sum()) for row in gi):
+                raise AssertionError(f"{what}: an id came back twice")
         worst4 = max(worst4, check_rows(torch, want, got, _k4_dist_of(torch, vectors, queries, metric),
                                         _k4_atol(torch, vectors, queries), what))
-    log(f"[ivf-kernels] K3 == plain at {len(k3_cases())} shapes, K4 == plain at {len(k4_cases())} shapes, "
-        f"distances within {IVF_RTOL:g} of the terms' magnitude, ids by the tie rule; "
-        f"max |err| K3 {worst3:.3g}, K4 {worst4:.3g}")
+    log(f"[ivf-kernels] K3 == plain at {len(k3_cases())} shapes (chunked B, queries a chunk: {chunked}), "
+        f"K4 == plain at "
+        f"{len(k4_cases())} shapes ({sum(c[4] for c in k4_cases())} with the dedup inside), distances within "
+        f"{IVF_RTOL:g} of the terms' magnitude, ids by the tie rule; max |err| K3 {worst3:.3g}, K4 {worst4:.3g}")
     return {"k3_err": worst3, "k4_err": worst4}
 
 
@@ -692,7 +749,8 @@ def phase_ivf_cell(torch, counted, argv=()) -> dict:
         raise AssertionError(f"the IVF cell's recall@10 {res['recall@10']} is below {CELL_RECALL} (rc {rc})")
     if launches["K3"] <= 0 or launches["K4"] <= 0:
         raise AssertionError(f"the IVF cell did not run K3 and K4 on the card: {launches}")
-    log(f"[ivf-cell] launches during the cell's searches: {launches}")
+    log(f"[ivf-cell] launches during the cell's searches: {launches} (K3: one a call, "
+        f"{len(ivf_scan.KERNELS)} kernels and a memset each)")
 
     # One more search of the cell, after the counts were read, hands over
     # the arguments it gives K3 and K4
@@ -701,8 +759,9 @@ def phase_ivf_cell(torch, counted, argv=()) -> dict:
     idx.search_batch_async(test[: res["batch"]], 10, keep=ops)
     k3_ops, k4_ops = ops["k3"], ops["k4"]
     qp, probe, rr = k3_ops[0], k3_ops[1], k3_ops[6]
-    q, pool_i, pool_d, k = k4_ops[1], k4_ops[2], k4_ops[3], k4_ops[4]
+    q, pool_i, pool_d, k, dedup = k4_ops[1], k4_ops[2], k4_ops[3], k4_ops[4], k4_ops[6]
     p = probe.shape[1]
+    B, S, r = q.shape[0], idx.slabs.shape[1], idx.slabs.shape[2]
     got3 = ivf_scan.ivf_probe_scan(*k3_ops)
     want3 = ivf_scan.ivf_probe_scan_plain(*k3_ops)
     err3 = check_rows(torch, want3, got3, _k3_dist_of(torch, qp, idx.slabs, idx.slab_sq, idx.slab_ids),
@@ -712,7 +771,6 @@ def phase_ivf_cell(torch, counted, argv=()) -> dict:
     err4 = check_rows(torch, want4, got4, _k4_dist_of(torch, idx.vectors, q, idx.metric),
                       _k4_atol(torch, idx.vectors[: 1 + int(pool_i.max())], q), "K4 on the cell")
 
-    B, S, r = q.shape[0], idx.slabs.shape[1], idx.slabs.shape[2]
     elem = idx.slabs.element_size()
     probed = torch.unique(probe).long()
     distinct = int(probed.numel())
@@ -725,31 +783,52 @@ def phase_ivf_cell(torch, counted, argv=()) -> dict:
         "distinct": distinct * S * 4 + live_distinct * (r * elem + 4) + io_bytes,
         "per_query_all_slots": B * p * S * (r * elem + 8) + io_bytes,
         "per_query_read": B * p * S * 4 + valid * (r * elem + 4) + io_bytes,
+        # the design's own traffic: the distinct clusters, plus the
+        # f32[B, p, S] scratch written once and read once
+        "design": distinct * S * 4 + live_distinct * (r * elem + 4) + io_bytes + 2 * B * p * S * 4,
     }
     live = pool_i[(pool_i >= 0) & torch.isfinite(pool_d)]
     rows4 = int(torch.unique(live).numel())
     k4_bytes = rows4 * idx.vectors.shape[1] * 4 + B * rr * 8 + B * idx.vectors.shape[1] * 4 + B * k * 8
-    t3 = _device_ms(torch, functools.partial(ivf_scan.ivf_probe_scan, *k3_ops), runs=IVF_TIMED_RUNS,
-                    kernel="probe_scan_kernel")
+    chunks = -(-B // ivf_scan.batch_chunk(B, p, S))
+    t3 = _k3_device_ms(torch, ivf_scan, k3_ops, chunks, IVF_TIMED_RUNS)
     t3_plain = _device_ms(torch, functools.partial(ivf_scan.ivf_probe_scan_plain, *k3_ops), runs=3)
     t4 = _device_ms(torch, functools.partial(ivf_rerank.ivf_exact_rerank, *k4_ops), runs=IVF_TIMED_RUNS,
                     kernel="rerank_kernel")
     t4_plain = _device_ms(torch, functools.partial(ivf_rerank.ivf_exact_rerank_plain, *k4_ops), runs=3)
-    k3 = {"launches": launches["K3"], "max_abs_err": err3, "ms": t3, "plain_ms": t3_plain,
+    # K3 at smaller B (the cell's first B queries), device time per call, and
+    # at B = 1 a call's time with its host launch work
+    sweep = {}
+    for b in K3_SWEEP_B:
+        sub = (qp[:b].contiguous(), probe[:b].contiguous()) + tuple(k3_ops[2:])
+        sweep[b] = _k3_device_ms(torch, ivf_scan, sub, 1, IVF_TIMED_RUNS)["ms"]
+    one = (qp[:1].contiguous(), probe[:1].contiguous()) + tuple(k3_ops[2:])
+    call1 = _median_call_ms(torch, functools.partial(ivf_scan.ivf_probe_scan, *one))
+    k3 = {"launches": launches["K3"], "max_abs_err": err3, "ms": t3["ms"], "plain_ms": t3_plain,
           "bound_ms": _bound_ms(k3_bytes["distinct"]), "bound_by": "bytes", "bytes": k3_bytes,
-          "per_query_bound_ms": _bound_ms(k3_bytes["per_query_read"]), "distinct_clusters": distinct,
-          "live_slots_distinct": live_distinct, "valid_slots": valid}
-    k4 = {"launches": launches["K4"], "max_abs_err": err4, "ms": t4, "plain_ms": t4_plain,
+          "per_query_bound_ms": _bound_ms(k3_bytes["per_query_read"]),
+          "design_bytes_ms": _bound_ms(k3_bytes["design"]), "distinct_clusters": distinct,
+          "live_slots_distinct": live_distinct, "valid_slots": valid, "by_kernel_ms": t3["by_kernel_ms"],
+          "kernels_per_call": t3["kernels_per_call"], "b_sweep_ms": sweep, "b1_call_ms": call1}
+    k4 = {"launches": launches["K4"], "max_abs_err": err4, "ms": t4, "plain_ms": t4_plain, "dedup": dedup,
           "bound_ms": _bound_ms(k4_bytes), "bound_by": "bytes", "bytes": k4_bytes, "distinct_rows": rows4}
-    log(f"[ivf-cell] K3 == plain and K4 == plain on the cell's operands (B={B}, p={p}, S={S}, r={r}, "
-        f"rr={rr}, {idx.slabs.dtype}); max |err| K3 {err3:.3g}, K4 {err4:.3g}")
-    log(f"[ivf-cell] K3 {t3:.4f} ms a call (device, mean of {IVF_TIMED_RUNS}), plain {t3_plain:.4f} ms; "
-        f"bound {k3['bound_ms']:.4f} ms by bytes ({k3_bytes['distinct']} B: {distinct} distinct probed "
-        f"clusters once, the rows of their {live_distinct} live slots), {k3['bound_ms'] / t3:.1%} of it; "
-        f"what one block per query reads: {k3_bytes['per_query_read']} B = {k3['per_query_bound_ms']:.4f} ms ({valid} live of {B * p * S} "
+    log(f"[ivf-cell] K3 == plain and K4 == plain on the cell's operands (B={B}, p={p}, S={S}, r={r}, rr={rr}, "
+        f"{idx.slabs.dtype}, K4 dedup={dedup}); max |err| K3 {err3:.3g}, K4 {err4:.3g}")
+    log(f"[ivf-cell] K3 {t3['ms']:.4f} ms a call, {t3['kernels_per_call']} device events a call, each one launch "
+        f"a call (device, mean of {IVF_TIMED_RUNS}): "
+        + ", ".join(f"{n} {v:.4f}" for n, v in t3["by_kernel_ms"].items()) + f"; plain {t3_plain:.4f} ms")
+    log(f"[ivf-cell] K3 bound {k3['bound_ms']:.4f} ms by bytes ({k3_bytes['distinct']} B: {distinct} distinct "
+        f"probed clusters once, the rows of their {live_distinct} live slots), {k3['bound_ms'] / t3['ms']:.1%} of "
+        f"it; the design's own traffic (with the f32[{B}, {p}, {S}] scratch written and read) "
+        f"{k3_bytes['design']} B = {k3['design_bytes_ms']:.4f} ms; what one block per query reads: "
+        f"{k3_bytes['per_query_read']} B = {k3['per_query_bound_ms']:.4f} ms ({valid} live of {B * p * S} "
         f"probed slots; all slots {k3_bytes['per_query_all_slots']} B)")
-    log(f"[ivf-cell] K4 {t4:.4f} ms a call, plain {t4_plain:.4f} ms; bound {k4['bound_ms']:.4f} ms by bytes "
-        f"({k4_bytes} B: {rows4} distinct pool rows), {k4['bound_ms'] / t4:.1%} of it")
+    log("[ivf-cell] K3 by B (device ms a call, the cell's first B queries): "
+        + "; ".join(f"B={b} {v:.4f}" for b, v in sweep.items())
+        + f"; B=1 a call with its host launch work (median of 30) {call1:.4f} ms")
+    log(f"[ivf-cell] K4 {t4:.4f} ms a call (dedup inside: {dedup}), plain {t4_plain:.4f} ms; bound "
+        f"{k4['bound_ms']:.4f} ms by bytes ({k4_bytes} B: {rows4} distinct pool rows), {k4['bound_ms'] / t4:.1%} "
+        f"of it")
     return {"res": res, "profile": prof, "k3": k3, "k4": k4}
 
 
@@ -899,20 +978,24 @@ def main() -> int:
         "max_abs_err": max(kerr["k3_err"], cell["k3"]["max_abs_err"]),
         "library_ms": None,
         "library": LIBRARY_NONE,
+        "kernels_per_call": cell["k3"]["kernels_per_call"],
+        "by_kernel_ms": cell["k3"]["by_kernel_ms"],
+        "b_sweep_ms": {str(b): v for b, v in cell["k3"]["b_sweep_ms"].items()},
+        "b1_call_ms": cell["k3"]["b1_call_ms"],
         "bound_bytes": cell["k3"]["bytes"],
         "per_query_bound_ms": cell["k3"]["per_query_bound_ms"],
-        "shape": ivf_shape,
+        "shape": ivf_shape + "; every device event of a call (kernels and memset)",
     }, {
-        "name": "K4 ivf_exact_rerank (exact rerank of the coarse pool)",
+        "name": "K4 ivf_exact_rerank (copy dedup and exact rerank of the coarse pool)",
         "route": "cuda",
         "source": "semadb_tpu_torch/csrc/ivf_rerank.cu",
-        "replaces": "semadb_tpu/index/ivf.py:517",
+        "replaces": "semadb_tpu/index/ivf.py:510",
         **{key: cell["k4"][key] for key in ("launches", "ms", "plain_ms", "bound_ms", "bound_by")},
         "max_abs_err": max(kerr["k4_err"], cell["k4"]["max_abs_err"]),
         "library_ms": None,
         "library": LIBRARY_NONE_K4,
         "bound_bytes": cell["k4"]["bytes"],
-        "shape": ivf_shape + ", k=10, rr=64 after dedup",
+        "shape": ivf_shape + f", k=10, rr=64 with the copies, dedup inside: {cell['k4']['dedup']}",
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -20,11 +20,13 @@ Placement, SOAR copies, spill relocation and the refit schedule are the JAX
 package's, line for line (its module docstring gives the measurements behind
 them). A query (:func:`_ivf_query`) is: probe selection (one [B, C]
 ``torch.matmul`` + ``topk``) → K3, the hand-written probed-slab scan with a
-running top-rr (``ops/kernels/ivf_scan.py``) → the overflow scan
-(``torch.matmul`` + ``topk``) merged into the pool → ``dedup_by_id`` when
-points have copies → K4, the hand-written exact rerank
-(``ops/kernels/ivf_rerank.py``) → top-k. On CPU tensors both kernels run
-their plain PyTorch versions.
+running top-rr (``ops/kernels/ivf_scan.py``: the probe list is inverted on
+the device, so each probed cluster is read once per group of up to 16 of the
+queries that probe it) → the overflow scan
+(``torch.matmul`` + ``topk``) merged into the pool → K4, the hand-written
+exact rerank (``ops/kernels/ivf_rerank.py``), which also returns each id
+once when points have copies → top-k. On CPU tensors both kernels run their
+plain PyTorch versions.
 
 Where the port differs from the JAX package:
   - writes update tensors in place (``index_copy_`` / ``index_put_``) under
@@ -60,7 +62,6 @@ from semadb_tpu_torch.models.schema import VectorIVFParams
 from semadb_tpu_torch.ops.distance import pairwise_distance
 from semadb_tpu_torch.ops.kernels.ivf_rerank import ivf_exact_rerank
 from semadb_tpu_torch.ops.kernels.ivf_scan import ivf_probe_scan
-from semadb_tpu_torch.ops.topk import dedup_by_id
 from semadb_tpu_torch.utils.grow import initial_capacity, next_capacity
 from semadb_tpu_torch.vectorstore.kmeans import kmeans_assign, kmeans_fit_large
 from semadb_tpu_torch.vectorstore.store import host_tensor
@@ -277,11 +278,9 @@ def _ivf_query(
         d_all, i_all = torch.cat([dist, od], dim=1), torch.cat([ids, oi], dim=1)
         dist, pos = torch.topk(d_all, rr, dim=1, largest=False, sorted=True)
         ids = torch.gather(i_all, 1, pos)
-    ids = ids.masked_fill(~torch.isfinite(dist), NIL)
-    if dedup:
-        # assignCopies > 1 stores a point in several slabs: keep one copy
-        dist, ids = dedup_by_id(dist, ids)
-    k4_args = (vectors, queries, ids.contiguous(), dist.contiguous(), k, metric)
+    # K4 takes a non-finite coarse score as an empty slot and, with dedup
+    # (assignCopies > 1 stores a point in several slabs), each id once
+    k4_args = (vectors, queries, ids.contiguous(), dist.contiguous(), k, metric, dedup)
     if keep is not None:
         keep.update(k3=k3_args, k4=k4_args)
     return ivf_exact_rerank(*k4_args)
@@ -567,9 +566,10 @@ class IndexIVF:
             self.slabs, self.slab_sq, self.slab_ids = slabs, slab_sq, slab_ids_dev
             self.ovf_vecs = ovf_vecs
             self.ovf_ids = torch.from_numpy(ovf_ids).to(self.device)
+            # With the pool it describes: a search's skip test compares the two
+            self._ovf_free = list(range(len(spill), O))
             self._sq_cache = {}
         self._fill = fill  # high-water mark incl. secondary copies
-        self._ovf_free = list(range(len(spill), O))
         with self._phase("loc_maps_s"):
             self._loc = dict(
                 zip(

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernel K4: the IVF exact rerank of the coarse pool.
 
 Replaces the XLA program of ``semadb_tpu/index/ivf.py`` · ``_ivf_query`` that
-reranks the pool (``:517-543``). The kernel source is
+deduplicates (``:510-515``) and reranks the pool (``:517-543``). The kernel source is
 ``semadb_tpu_torch/csrc/ivf_rerank.cu`` (with ``csrc/ivf_common.cuh``); it is
 bound by bytes, and its header says what the design does about that. It is
 built like K1 and K2: ``nvcc`` for ``sm_90a`` into ``semadb_tpu_torch/_build/``
@@ -12,7 +12,11 @@ euclidean, taken directly as ``sum (x - q)^2``; ``-dot``; ``1 - dot``)
 between each query and the rows of its pool, and returns the ``k``
 smallest, ascending, with ``(inf, -1)`` for empty places. A pool slot is
 empty when its coarse score is not finite or its id lies outside
-``[0, cap)``. Equal distances may come in any order. For CPU tensors it runs
+``[0, cap)``. With ``dedup`` (points stored with SOAR copies) an id that
+fills several slots of a pool row is reranked and returned once: the JAX
+program's ``dedup_by_id`` then rerank, since ``dedup_by_id`` only empties the
+other copies of an id, and copies are one row with one exact distance.
+Equal distances may come in any order. For CPU tensors it runs
 :func:`ivf_exact_rerank_plain`, the plain PyTorch version (the JAX program's
 gather, in chunks of 64 pool slots past 2^27 gathered elements); for CUDA
 tensors it launches the kernel or raises — it never falls back. ``LAUNCHES``
@@ -51,15 +55,21 @@ _LOCK = threading.Lock()
 
 def ivf_exact_rerank_plain(
     vectors: torch.Tensor, queries: torch.Tensor, pool: torch.Tensor, coarse: torch.Tensor,
-    k: int, metric: str,
+    k: int, metric: str, dedup: bool = False,
 ):
     """Plain PyTorch version: gather ``vectors[pool]``, exact distances,
-    ``topk``; as the JAX program, but ids outside ``[0, cap)`` are empty."""
+    ``topk``; as the JAX program, but ids outside ``[0, cap)`` are empty.
+    With ``dedup`` every live slot but the first of each id is emptied."""
     _check_operands(vectors, queries, pool, coarse, k, metric)
     cap = vectors.shape[0]
     B, rr = pool.shape
     D = queries.shape[1]
     valid = (pool >= 0) & (pool < cap) & torch.isfinite(coarse)
+    if dedup:
+        key, order = torch.sort(pool.masked_fill(~valid, NIL), dim=1, stable=True)
+        repeat = torch.zeros_like(valid)
+        repeat[:, 1:] = (key[:, 1:] == key[:, :-1]) & (key[:, 1:] != NIL)
+        valid &= ~torch.zeros_like(valid).scatter_(1, order, repeat)
     pc = pool.clamp(0, cap - 1).long()
 
     def exact(cols: torch.Tensor) -> torch.Tensor:
@@ -88,14 +98,14 @@ def ivf_exact_rerank_plain(
 
 def ivf_exact_rerank(
     vectors: torch.Tensor, queries: torch.Tensor, pool: torch.Tensor, coarse: torch.Tensor,
-    k: int, metric: str,
+    k: int, metric: str, dedup: bool = False,
 ):
     """``vectors`` f32[cap, D], ``queries`` f32[B, D], ``pool`` i32[B, rr],
     ``coarse`` f32[B, rr] → (f32[B, k], i32[B, k]): the kernel for CUDA
     tensors, the plain version for CPU tensors."""
     tensors = (vectors, queries, pool, coarse)
     if all(t.device.type == "cpu" for t in tensors):
-        return ivf_exact_rerank_plain(vectors, queries, pool, coarse, k, metric)
+        return ivf_exact_rerank_plain(vectors, queries, pool, coarse, k, metric, dedup)
     _check_operands(vectors, queries, pool, coarse, k, metric)
     dev = queries.device
     for t in tensors:
@@ -115,7 +125,7 @@ def ivf_exact_rerank(
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.semadb_ivf_exact_rerank(
             vectors.data_ptr(), cap, D, queries.data_ptr(), pool.data_ptr(), coarse.data_ptr(),
-            B, rr, k, METRIC_FLAGS[metric], out_d.data_ptr(), out_i.data_ptr(), stream,
+            B, rr, k, METRIC_FLAGS[metric], int(dedup), out_d.data_ptr(), out_i.data_ptr(), stream,
         )
         if rc != 0:
             msg = lib.semadb_ivf_rerank_error_string(rc).decode()
@@ -154,7 +164,7 @@ def _library():
         lib.semadb_ivf_exact_rerank.restype = ctypes.c_int
         lib.semadb_ivf_exact_rerank.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.semadb_ivf_rerank_error_string.restype = ctypes.c_char_p

@@ -8,14 +8,22 @@ what the design does about that. It is built like K1 and K2: ``nvcc`` for
 ``sm_90a`` into ``semadb_tpu_torch/_build/`` at first use, loaded with
 ``ctypes``.
 
+The design is cluster-major: the probe list is inverted on the device, each
+probed cluster is read once per group of up to Q of the (query, probe) pairs
+that name it, every pair's slot scores go to a scratch buffer, and each
+query's scores are merged into its top-rr. A call is five kernels and a
+memset (``KERNELS``), and a scratch of B * p * S floats, which the wrapper
+keeps under ``SCRATCH_BYTES`` by running B in chunks.
+
 :func:`ivf_probe_scan` returns the ``rr`` smallest coarse scores
 ``slab_sq - 2 <slab row, qp>`` over the probed slots, ascending, with their
 ids; NIL slots (id -1) and slots whose id the mask refuses are left out, and
 unfilled places are ``(inf, -1)``. Equal scores may come in any order. For
 CPU tensors it runs :func:`ivf_probe_scan_plain`, the plain PyTorch version
 (the JAX program's probe-chunked gather and einsum, then ``topk``); for CUDA
-tensors it launches the kernel or raises — it never falls back. ``LAUNCHES``
-counts kernel launches.
+tensors it launches the kernels or raises — it never falls back.
+``LAUNCHES`` counts wrapper calls that launched (one a call, whatever the
+number of chunks).
 """
 
 from __future__ import annotations
@@ -32,11 +40,17 @@ from semadb_tpu_torch.utils.build import CSRC_DIR, NVCC_FLAGS, build_library, nv
 SOURCE = os.path.join(CSRC_DIR, "ivf_scan.cu")
 HEADERS = (os.path.join(CSRC_DIR, "ivf_common.cuh"),)
 SLAB_DTYPES = (torch.float32, torch.bfloat16)
-MAX_RR = 2048  # half the kernel's shared candidate buffer
+MAX_RR = 2048  # the largest pool the merge keeps in shared memory
 MAX_R = 4096
 NIL = -1
 # Bytes of the [B, pchunk, S, r] gather per step of the plain version
 PLAIN_CHUNK_BYTES = 1 << 30
+# The scratch (B * p * S scores of 4 bytes) stays under this many bytes: B
+# runs in chunks past it
+SCRATCH_BYTES = 1 << 30
+# The device kernels of one call (and of each further chunk of B), besides
+# one memset that zeroes the work area's counters
+KERNELS = ("ivf_scan_count", "ivf_scan_offsets", "ivf_scan_invert", "ivf_scan_score", "ivf_scan_merge")
 
 LAUNCHES = 0
 BUILD_LOG = ""  # nvcc's output of the build this process did (ptxas -v)
@@ -82,13 +96,19 @@ def ivf_probe_scan_plain(
     return best_d, best_i
 
 
+def batch_chunk(b: int, p: int, s: int) -> int:
+    """Queries a chunk: as many as keep the scratch of ``b * p * s`` f32
+    scores under ``SCRATCH_BYTES`` (at least 1)."""
+    return max(1, min(b, SCRATCH_BYTES // max(p * s * 4, 1)))
+
+
 def ivf_probe_scan(
     qp: torch.Tensor, probe: torch.Tensor, slabs: torch.Tensor, slab_sq: torch.Tensor,
     slab_ids: torch.Tensor, mask: Optional[torch.Tensor], rr: int,
 ):
     """``qp`` f32[B, r], ``probe`` i32[B, p], ``slabs`` f32|bf16[C, S, r],
     ``slab_sq`` f32[C, S], ``slab_ids`` i32[C, S], ``mask`` u8[n] or None →
-    (f32[B, rr], i32[B, rr]): the kernel for CUDA tensors, the plain version
+    (f32[B, rr], i32[B, rr]): the kernels for CUDA tensors, the plain version
     for CPU tensors."""
     tensors = (qp, probe, slabs, slab_sq, slab_ids) + ((mask,) if mask is not None else ())
     if all(t.device.type == "cpu" for t in tensors):
@@ -112,15 +132,21 @@ def ivf_probe_scan(
     global LAUNCHES
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.semadb_ivf_probe_scan(
-            qp.data_ptr(), probe.data_ptr(), slabs.data_ptr(), slab_sq.data_ptr(),
-            slab_ids.data_ptr(), None if mask is None else mask.data_ptr(),
-            0 if mask is None else mask.shape[0], B, p, C, S, r,
-            int(slabs.dtype == torch.bfloat16), rr, out_d.data_ptr(), out_i.data_ptr(), stream,
-        )
-        if rc != 0:
-            msg = lib.semadb_ivf_error_string(rc).decode()
-            raise RuntimeError(f"K3 launch failed ({rc}: {msg}) at B={B} p={p} C={C} S={S} r={r} rr={rr}")
+        bc = batch_chunk(B, p, S)
+        work = torch.empty(lib.semadb_ivf_scan_work_ints(bc, p, C, r), dtype=torch.int32, device=dev)
+        scratch = torch.empty(bc * p * S, dtype=torch.float32, device=dev)
+        for b0 in range(0, B, bc):
+            b1 = min(B, b0 + bc)
+            rc = lib.semadb_ivf_probe_scan(
+                qp[b0:b1].data_ptr(), probe[b0:b1].data_ptr(), slabs.data_ptr(), slab_sq.data_ptr(),
+                slab_ids.data_ptr(), None if mask is None else mask.data_ptr(),
+                0 if mask is None else mask.shape[0], b1 - b0, p, C, S, r,
+                int(slabs.dtype == torch.bfloat16), rr, work.data_ptr(), scratch.data_ptr(),
+                out_d[b0:b1].data_ptr(), out_i[b0:b1].data_ptr(), stream,
+            )
+            if rc != 0:
+                msg = lib.semadb_ivf_error_string(rc).decode()
+                raise RuntimeError(f"K3 launch failed ({rc}: {msg}) at B={b1 - b0} p={p} C={C} S={S} r={r} rr={rr}")
         with _LOCK:
             LAUNCHES += 1
     return out_d, out_i
@@ -159,8 +185,11 @@ def _library():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_longlong,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
+        lib.semadb_ivf_scan_work_ints.restype = ctypes.c_longlong
+        lib.semadb_ivf_scan_work_ints.argtypes = [ctypes.c_int] * 4
         lib.semadb_ivf_error_string.restype = ctypes.c_char_p
         lib.semadb_ivf_error_string.argtypes = [ctypes.c_int]
         _LIB = lib

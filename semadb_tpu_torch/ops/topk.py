@@ -6,10 +6,13 @@ smaller is better; invalid slots carry ``INF`` distance and id ``-1``.
 Among equal distances ``torch.topk`` promises no order on CUDA, where
 ``lax.top_k`` puts the lower index first; results are compared by the tie
 rule (equal distances; equal ids below the k-th distance; at the k-th
-distance, some set of rows carrying it).
+distance, some set of rows carrying it), and pools that may hold an id
+twice by its multiset form.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -92,3 +95,29 @@ def tie_rule_errors(ref_d, ref_ids, got_d, got_ids, dist_of, atol: float = 0.0) 
         if d >= dk - atol and abs(float(lookup(i)) - dk) > atol:
             errors.append(f"id {i} at the k-th distance {dk} has distance {lookup(i)}")
     return errors
+
+
+def pool_errors(want_d, want_i, got_d, got_i, dist_of, atol: float = 0.0) -> list:
+    """The tie rule for one row of a pool that may hold an id twice (points
+    stored with copies): distances equal within ``atol`` place by place; the
+    multiset of ids below the last reference distance equal; every other
+    returned id carries that distance (``dist_of``), or is -1 at inf.
+    Returns the list of violations, empty when the rows agree."""
+    want_d, got_d = [float(d) for d in want_d], [float(d) for d in got_d]
+    errs = [f"place {j}: {g} != {w}" for j, (w, g) in enumerate(zip(want_d, got_d))
+            if not (w == g or abs(w - g) <= atol)]
+    if len(want_d) != len(got_d):
+        errs.insert(0, f"{len(got_d)} places, reference has {len(want_d)}")
+    if errs or not want_d:
+        return errs[:3]
+    dk = want_d[-1]
+    below_w = collections.Counter(i for d, i in zip(want_d, want_i) if d < dk - atol)
+    below_g = collections.Counter(i for d, i in zip(got_d, got_i) if d < dk - atol)
+    if below_w != below_g:
+        return [f"ids below the last distance differ: {below_w - below_g} / {below_g - below_w}"]
+    for d, i in zip(got_d, got_i):
+        if d >= dk - atol:
+            true = float("inf") if i == -1 else float(dist_of(i))
+            if not (true == d or abs(true - d) <= atol):
+                return [f"id {i} at distance {d} has distance {true}"]
+    return []

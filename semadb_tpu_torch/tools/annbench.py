@@ -16,7 +16,8 @@ batches of 4,096, spread 0.5, euclidean, assignCopies 2, k = 10):
 It prints one JSON line: ``qps``, ``recall@10``, ``build_s`` and its split
 (upload, k-means, packing, slab build), ``peak_mem_gib``, the device and, on
 a CUDA device, the card's name and power limit and one ``torch.profiler``
-pass over one batch (device time by kernel and op, busy share, launches).
+pass over one batch (device time by kernel and op and by stage, busy share,
+launches).
 A ``cuda`` run without a CUDA device is an error.
 """
 
@@ -103,10 +104,29 @@ def prime_profiler() -> None:
     torch.cuda.synchronize()
 
 
+# The stages of one search batch, by the names of their device events: the
+# first stage whose patterns a name holds. K3's memset zeroes its work area;
+# no other stage of the query sets memory. The top-k passes of the overflow
+# scan would count under probe_topk (the cell has no overflow rows); the rest
+# is "other" (the probe scores' elementwise passes, casts, gathers).
+STAGES = (
+    ("k3_probed_slab_scan", ("ivf_scan_", "Memset")),
+    ("k4_dedup_rerank", ("rerank_kernel",)),
+    ("probe_gemm", ("gemm",)),
+    ("probe_topk", ("topk", "Sort")),
+    ("upload", ("Memcpy HtoD",)),
+)
+
+
+def stage_of(kernel: str) -> str:
+    """The stage of ``STAGES`` a device event belongs to, else ``other``."""
+    return next((stage for stage, pats in STAGES if any(pat in kernel for pat in pats)), "other")
+
+
 def profile_batch(index, queries: np.ndarray, k: int, num_probes: int = 0) -> dict:
     """One ``torch.profiler`` pass over one search batch on a CUDA device:
-    device time by kernel and op, the busy share of the wall time, and the
-    number of kernel launches."""
+    device time by kernel and op and by stage (``STAGES``), the busy share of
+    the wall time, and the number of kernel launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -128,9 +148,12 @@ def profile_batch(index, queries: np.ndarray, k: int, num_probes: int = 0) -> di
     ) - PRIME_LAUNCHES
     if busy_ms <= 0:
         raise RuntimeError("torch.profiler recorded no device time for the search batch")
+    by_stage: dict = {}
+    for name, ms in by_kernel.items():
+        by_stage[stage_of(name)] = by_stage.get(stage_of(name), 0.0) + ms
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
     return {"wall_ms": wall_ms, "device_ms": busy_ms, "busy_share": busy_ms / wall_ms,
-            "launches": launches, "device_ms_by_kernel": top}
+            "launches": launches, "device_ms_by_stage": by_stage, "device_ms_by_kernel": top}
 
 
 def card() -> str:

@@ -21,7 +21,7 @@ from semadb_tpu_torch.index.ivf import IndexIVF
 from semadb_tpu_torch.models.quantizer import BinaryQuantizerParams, Quantizer
 from semadb_tpu_torch.models.schema import VectorFlatParams, VectorIVFParams
 from semadb_tpu_torch.ops.kernels import gather, hamming, ivf_rerank, ivf_scan
-from semadb_tpu_torch.ops.topk import tie_rule_errors
+from semadb_tpu_torch.ops.topk import pool_errors, tie_rule_errors
 
 CASES = [
     (1, 1, 1), (2, 130, 9), (7, 511, 5), (8, 129, 8), (15, 1000, 48), (16, 4099, 48),
@@ -171,11 +171,19 @@ def test_gather_kernel_reports_bad_ids(cuda):
         gather.gather_rows_padded(vectors, torch.zeros(4, dtype=torch.int32))
 
 
-# (B, p, S, r, rr, bf16 slabs, mask)
+# (B, p, S, r, rr, bf16 slabs, mask, layout): layout None (random probes),
+# "same-probes" (every query on the same probes), "copies" (ids stored in two
+# clusters), "holes" (live prefixes with deleted slots), "chunked" (a small
+# scratch budget: B runs in chunks)
 IVF_SCAN_CASES = [
-    (1, 1, 64, 3, 20, False, False), (7, 5, 128, 100, 64, True, True), (64, 24, 192, 128, 256, False, True),
-    (64, 96, 64, 100, 64, True, False), (4096, 24, 128, 128, 64, False, False),
-    (4096, 24, 128, 128, 64, True, True), (3, 40, 1024, 8, 2048, False, False),
+    (1, 1, 64, 3, 20, False, False, None), (7, 5, 128, 100, 64, True, True, None),
+    (64, 24, 192, 128, 256, False, True, None), (64, 96, 64, 100, 64, True, False, None),
+    (4096, 24, 128, 128, 64, False, False, None), (4096, 24, 128, 128, 64, True, True, None),
+    (3, 40, 1024, 8, 2048, False, False, None),
+    (4096, 24, 128, 128, 64, False, False, "same-probes"), (300, 24, 128, 128, 64, False, True, "copies"),
+    (9, 6, 40, 100, 20, True, False, "copies"), (4096, 24, 128, 128, 64, False, True, "holes"),
+    (33, 8, 192, 3, 64, True, False, "holes"), (1000, 24, 128, 128, 64, False, False, "chunked"),
+    (5, 40, 1024, 8, 2048, True, True, "chunked"),
 ]
 IVF_RTOL = 1e-5
 
@@ -191,26 +199,56 @@ def _rows_agree(want, got, dist_of, atol):
         assert not errs, (b, errs[:3])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,p,s,r,rr,bf16,masked", IVF_SCAN_CASES)
-def test_ivf_probe_scan_matches_plain(cuda, b, p, s, r, rr, bf16, masked):
-    gen = torch.Generator().manual_seed(b + 10 * p + s + r + rr)
+def _pools_agree(want, got, dist_of, atol):
+    """Every row of got (d, i) against want by the multiset tie rule (a pool
+    may hold an id twice)."""
+    wd, wi = (t.cpu() for t in want)
+    gd, gi = (t.cpu() for t in got)
+    assert gd.shape == wd.shape
+    for b in range(wd.shape[0]):
+        errs = pool_errors(wd[b].tolist(), wi[b].tolist(), gd[b].tolist(), gi[b].tolist(),
+                           lambda i, b=b: dist_of(b, i), float(atol[b]))
+        assert not errs, (b, errs)
+
+
+def _scan_operands(gen, b, p, s, r, bf16, masked, layout):
     c = max(2 * p, 32)
     rows = torch.randn((c, s, r), generator=gen)
     ids = (torch.randperm(c * s, generator=gen).reshape(c, s) + 2).to(torch.int32)
     nil = torch.rand((c, s), generator=gen) < 0.3
+    if layout == "holes":
+        fill = torch.randint(s // 2, s + 1, (c, 1), generator=gen)
+        nil = (torch.arange(s)[None, :] >= fill) | (torch.rand((c, s), generator=gen) < 0.1)
     ids[nil] = -1
     rows[nil] = 0.0
+    if layout == "copies":
+        q4 = s // 4
+        ids[:, s - q4:] = ids.roll(1, dims=0)[:, :q4].clone()
+        rows[:, s - q4:] = rows.roll(1, dims=0)[:, :q4].clone()
     slabs = rows.to(torch.bfloat16) if bf16 else rows
     sq = (rows * rows).sum(-1)
     qp = torch.randn((b, r), generator=gen)
-    probe = torch.argsort(torch.rand((b, c), generator=gen), dim=1)[:, :p].to(torch.int32).contiguous()
+    if layout == "same-probes":
+        probe = torch.randperm(c, generator=gen)[:p].to(torch.int32).expand(b, p).contiguous()
+    else:
+        probe = torch.argsort(torch.rand((b, c), generator=gen), dim=1)[:, :p].to(torch.int32).contiguous()
     mask = (torch.rand(c * s + 2, generator=gen) < 0.5).to(torch.uint8) if masked else None
+    return qp, probe, slabs, sq, ids, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,p,s,r,rr,bf16,masked,layout", IVF_SCAN_CASES)
+def test_ivf_probe_scan_matches_plain(cuda, b, p, s, r, rr, bf16, masked, layout, monkeypatch):
+    gen = torch.Generator().manual_seed(b + 10 * p + s + r + rr)
+    qp, probe, slabs, sq, ids, mask = _scan_operands(gen, b, p, s, r, bf16, masked, layout)
+    if layout == "chunked":
+        monkeypatch.setattr(ivf_scan, "SCRATCH_BYTES", p * s * 4 * max(1, b // 7))
+        assert ivf_scan.batch_chunk(b, p, s) < b
     ops = [t if t is None else t.to(cuda) for t in (qp, probe, slabs, sq, ids, mask)]
     before = ivf_scan.LAUNCHES
     got = ivf_scan.ivf_probe_scan(*ops, rr)
     torch.cuda.synchronize()
-    assert ivf_scan.LAUNCHES == before + 1
+    assert ivf_scan.LAUNCHES == before + 1  # one a call, whatever the chunks
     want = ivf_scan.ivf_probe_scan_plain(*ops, rr)
     flat_ids = ids.reshape(-1)
     x = slabs.float().reshape(-1, r).double()
@@ -223,16 +261,17 @@ def test_ivf_probe_scan_matches_plain(cuda, b, p, s, r, rr, bf16, masked):
 
     xmax = float(x.norm(dim=1).max())
     atol = IVF_RTOL * (xmax * xmax + 2.0 * xmax * qp.double().norm(dim=1))
-    _rows_agree(want, got, dist_of, atol)
+    _pools_agree(want, got, dist_of, atol)
 
 
-IVF_RERANK_CASES = [(1, 3, 1, "euclidean"), (7, 128, 10, "dot"), (64, 1536, 100, "cosine"),
-                    (4096, 128, 10, "euclidean"), (33, 100, 10, "euclidean"), (5, 8, 100, "dot")]
+IVF_RERANK_CASES = [(1, 3, 1, "euclidean", False), (7, 128, 10, "dot", False), (64, 1536, 100, "cosine", False),
+                    (4096, 128, 10, "euclidean", False), (33, 100, 10, "euclidean", False), (5, 8, 100, "dot", False),
+                    (4096, 128, 10, "euclidean", True), (64, 100, 10, "dot", True), (7, 1536, 100, "cosine", True)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,d,k,metric", IVF_RERANK_CASES)
-def test_ivf_exact_rerank_matches_plain(cuda, b, d, k, metric):
+@pytest.mark.parametrize("b,d,k,metric,dedup", IVF_RERANK_CASES)
+def test_ivf_exact_rerank_matches_plain(cuda, b, d, k, metric, dedup):
     gen = torch.Generator().manual_seed(b + d + k)
     cap = 3000
     vectors = torch.randn((cap, d), generator=gen)
@@ -242,15 +281,18 @@ def test_ivf_exact_rerank_matches_plain(cuda, b, d, k, metric):
         queries = queries / queries.norm(dim=1, keepdim=True)
     rr = max(64, 2 * k)
     pool = torch.stack([torch.randperm(cap, generator=gen)[:rr] for _ in range(b)]).to(torch.int32)
+    if dedup:  # a quarter of the slots repeat another slot's id
+        again = torch.rand((b, rr), generator=gen) < 0.25
+        pool = torch.where(again, torch.gather(pool, 1, torch.randint(0, rr, (b, rr), generator=gen)), pool)
     coarse = torch.randn((b, rr), generator=gen)
     coarse[torch.rand((b, rr), generator=gen) < 0.2] = float("inf")
     pool[torch.rand((b, rr), generator=gen) < 0.05] = -1
     ops = [t.to(cuda) for t in (vectors, queries, pool, coarse)]
     before = ivf_rerank.LAUNCHES
-    got = ivf_rerank.ivf_exact_rerank(*ops, k, metric)
+    got = ivf_rerank.ivf_exact_rerank(*ops, k, metric, dedup)
     torch.cuda.synchronize()
     assert ivf_rerank.LAUNCHES == before + 1
-    want = ivf_rerank.ivf_exact_rerank_plain(*ops, k, metric)
+    want = ivf_rerank.ivf_exact_rerank_plain(*ops, k, metric, dedup)
 
     def dist_of(bb, i):
         if i == -1:
@@ -262,7 +304,10 @@ def test_ivf_exact_rerank_matches_plain(cuda, b, d, k, metric):
 
     xmax = float(vectors.norm(dim=1).max())
     atol = IVF_RTOL * ((xmax + queries.double().norm(dim=1)) ** 2 + 1.0)
-    _rows_agree(want, got, dist_of, atol)
+    if dedup:  # each id once, so the tie rule applies as it stands
+        _rows_agree(want, got, dist_of, atol)
+    else:
+        _pools_agree(want, got, dist_of, atol)
 
 
 @pytest.mark.cuda
@@ -280,6 +325,11 @@ def test_ivf_kernel_wrappers_refuse_bad_operands(cuda):
         ivf_scan.ivf_probe_scan(qp, probe, slabs, sq, ids, None, 4097)
     d, i = ivf_scan.ivf_probe_scan(qp, probe, slabs, sq, ids, None, 8)
     assert torch.isinf(d).all() and (i == -1).all()  # every slot NIL
+    probe[0, 1] = 4  # outside [0, C): skipped
+    ids[0] = torch.arange(16, dtype=torch.int32, device=cuda) + 2
+    d, i = ivf_scan.ivf_probe_scan(qp, probe, slabs, sq, ids, None, 40)
+    torch.cuda.synchronize()
+    assert sorted(i[0, :32].tolist()) == sorted(list(range(2, 18)) * 2) and torch.isinf(d[0, 32:]).all()
     vectors = torch.zeros((10, 8), device=cuda)
     pool = torch.zeros((2, 5), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="metrics"):

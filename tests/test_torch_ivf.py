@@ -413,6 +413,51 @@ def test_search_while_insert_sees_only_written_rows(monkeypatch):
     assert idx.search_batch(more[20_137][None, :], 1)[1][0, 0] == 20_137
 
 
+def test_refit_binds_the_overflow_free_list_with_its_pool():
+    """A refit binds the new overflow pool and its free list under one hold
+    of ``_state_lock``. A search skips the overflow scan when the free list
+    is as long as the pool; had the lock been released between the two
+    bindings, a search there would pair the new pool (live spilled rows)
+    with the old, full free list and drop the spilled points. The JAX
+    package always scans its overflow pool. Here a deferred bulk load of 515
+    points into 16 clusters of 32 slots spills 3 into a pool of 8, the size
+    of the pre-fit pool; every release of the lock checks what a search can
+    see, and a search right after the refit's bind must find the spilled
+    points."""
+    rng = np.random.default_rng(1)
+    cents = rng.standard_normal((16, 8)).astype(np.float32) * 20
+    lab = np.concatenate([np.repeat(np.arange(16), 32), [0, 0, 0]])
+    vecs = (cents[lab] + rng.standard_normal((len(lab), 8)).astype(np.float32)).astype(np.float32)
+    ids = np.arange(2, 2 + len(vecs), dtype=np.int32)
+    idx = _port(dim=8, num_clusters=16, slab_size=32)
+    idx.insert_bulk(ids, vecs, defer_fit=True)
+    pool0 = idx.ovf_ids
+    assert pool0.shape[0] == len(idx._ovf_free) == 8
+    seen, window = [], {}
+    lock = threading.RLock()
+
+    class CheckedLock:
+        def __enter__(self):
+            lock.acquire()
+
+        def __exit__(self, *exc):
+            pool = idx.ovf_ids
+            if pool.shape[0] == len(idx._ovf_free) and bool((pool != -1).any()):
+                seen.append((pool.shape[0], int((pool != -1).sum())))
+            lock.release()
+            if pool is not pool0 and "found" not in window:
+                window["found"] = None  # the search below takes the lock too
+                window["found"] = idx.search_batch(vecs, k=1)[1][:, 0]
+
+    idx._state_lock = CheckedLock()
+    idx.flush_pending()
+    spilled = sorted(i for i, loc in idx._loc.items() if loc[0] == "o")
+    assert idx.ovf_ids.shape[0] == 8 and 1 <= len(spilled) <= 4, (idx.ovf_ids.shape, spilled)
+    assert seen == [], f"a search could see a live overflow row beside a full free list: {seen}"
+    for found in (window["found"], idx.search_batch(vecs, k=1)[1][:, 0]):
+        assert [int(found[i - 2]) for i in spilled] == spilled
+
+
 # -- wiring: shard, HTTP v2, JAX-written shard files --------------------------------
 
 IVF_SCHEMA = {"emb": {"type": "vectorIVF", "vectorIVF": {"vectorSize": 8, "distanceMetric": "euclidean"}}}
