@@ -69,10 +69,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    stored in two clusters, live prefixes with holes (a refit's packing, then
    deletes), and a scratch budget patched small so that B runs in chunks;
    K4 at D in {3, 128, 1536}, k in {1, 10, 100}, all three metrics (27
-   combinations), and pools that hold ids two or three times, deduplicated
-   by the kernel (9 more). Distances must agree within 1e-5 of the summed
-   terms' magnitude (the sums run in another order), ids by the tie rule at
-   that tolerance, pools as multisets.
+   combinations), pools that hold ids two or three times, deduplicated by
+   the kernel (9 more), and both routes of its design (bulk copies at D in
+   {4, 128, 1536, 4096}; element loads at D = 3 and on a base off the
+   16-byte grid) across k in {1, 10, 32, 33, 100}, rr in {20, 64, 256,
+   2048} and B in {1, 7, 4096}, pools with every id 2-3 times and a pool
+   that is all empty (33 more). Distances must agree within 1e-5 of the
+   summed terms' magnitude (the sums run in another order), ids by the tie
+   rule at that tolerance, pools as multisets.
 8. The IVF bench cell: ``semadb_tpu_torch.tools.annbench.main`` at its
    defaults on ``cuda`` (the JAX package's default ``python bench.py``:
    1,000,000 x 128 ``embedding_like(spread=0.5, seed=42)``, euclidean,
@@ -85,7 +89,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    device event of its calls, its five kernels and its memset, and each must
    have recorded one launch a call), the plain versions timed, and set
    against their byte bounds; K3 also at B from 1 to 4,096 (the cell's first
-   B queries).
+   B queries), K4 also at B = 1, on the device and as a call with its host
+   work. Then K4 at the projected traversal's shape (D = 1536, rr = 256,
+   k = 10, B = 4,096 and 1) over a seeded f32[400,000, 1536] table and random
+   pools: checked, timed, its bound from the distinct rows the pools hold.
+   With ``--k4-baseline SOURCE`` (another K4 source with the same C
+   interface, such as the parent commit's) that library is built and timed
+   beside the tree's K4 at each of these shapes.
 8b. ``vectorIVF`` over HTTP v2: the port's node and server with
    ``config/singleServer.yaml``, a 128-d euclidean ``vectorIVF`` collection
    of 20,000 points (``embedding_like``, the bench cell's generator and
@@ -93,11 +103,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    with held-out queries checked against numpy brute force (recall@10 >=
    0.95, every returned distance exact); K3 and K4 must have launched in
    this phase.
+9. A hybrid collection over HTTP v2, as in 8b, on one shard
+   (``shardPlacement: device``): a 128-d ``vectorIVF`` property beside
+   ``body`` (text), ``category`` (string), ``year`` (integer) and ``tags``
+   (stringArray), 100,000 documents (the reference text bench's corpus, Zipf
+   over 20,000 words) ingested 10,000 a write transaction. Every query is
+   checked against a plain evaluation over the generated documents: string,
+   integer and stringArray filters (the first page over HTTP, and the whole
+   set as the shard's index manager finds it);
+   ``vectorIVF`` filtered by each (numpy's brute force over the members, the
+   tie rule, distances exact); text ``containsAny`` and ``containsAll`` over
+   common and mid-rank terms (the TF-IDF formula recomputed in numpy; scores
+   within 1e-5 relative, descending, ids by the tie rule); a hybrid ``_or``
+   of an unfiltered ``vectorIVF`` arm and a text arm (each hybrid score the
+   arms' weighted sum; K3 and K4 must have launched). Then the widened-probe
+   path on phase 8's index: a random filter over half its 1,000,000 points
+   (past ``FILTER_EXACT_CAP``, so p = 4 x 24 and K3 skips masked slots),
+   256 queries, recall@10 against numpy's exact search over the members
+   >= 0.95, K3 and K4 launched.
 
 Each kernel's bound is its bytes (each input read once, each output
 written once; for K2 each distinct row once; for K3 each distinct probed
-cluster once, for K4 each distinct pool row once) over 3.35 TB/s, from this
-run's inputs. K2 does no arithmetic. K1's work is bit operations, and the
+cluster once, for K4 each distinct live pool row once) over 3.35 TB/s, from
+this run's inputs. K2 does no arithmetic. K1's work is bit operations, and the
 card's data sheet gives no rate for the tensor cores' single-bit MMA, so
 no operations term can be a least time for it; the term at the int8 rate
 (2 B N 32W / 1.979e15 s) is printed beside the bound for information.
@@ -136,6 +164,7 @@ GATHER_SHAPES = [(d, n, cap) for d in (1, 3, 128, 1536) for n in (1, 1023, 1024,
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT8_OPS_PER_S = 1.979e15  # H100 SXM tensor cores, int8 dense
 FLUSH_BYTES = 128 << 20  # written, and as much read, between L2-cold calls
+PROFILER_WINDOWS = 3  # windows a time may take before a lost window fails the run
 K1_KERNEL = "bit_distance_kernel"  # in the names of both of K1's routes
 
 
@@ -332,13 +361,21 @@ def _device_events(torch, fn, runs: int = 30, before=None) -> dict:
 def _device_ms(torch, fn, runs: int = 30, before=None, kernel=None):
     """Device time per call: the time of the device events over ``runs``
     calls of ``fn`` (only events whose name holds ``kernel``, when given,
-    averaged over the launches recorded). Raises if the profiler saw no such
-    device activity."""
-    events = {k: v for k, v in _device_events(torch, fn, runs, before).items() if kernel is None or kernel in k}
-    total_us = sum(us for _, us in events.values())
-    if total_us <= 0:
-        raise RuntimeError(f"torch.profiler recorded no device time of {kernel or 'any kernel'}; "
-                           "the kernel times cannot be measured")
+    averaged over the launches recorded). A window that recorded none of
+    them is logged and opened again (P2: in this script's process the
+    profiler has lost device events); raises after PROFILER_WINDOWS such
+    windows."""
+    for window in range(PROFILER_WINDOWS):
+        recorded = _device_events(torch, fn, runs, before)
+        events = {k: v for k, v in recorded.items() if kernel is None or kernel in k}
+        total_us = sum(us for _, us in events.values())
+        if total_us > 0:
+            break
+        log(f"[profiler] window {window + 1} of {PROFILER_WINDOWS} recorded no device time of "
+            f"{kernel or 'any kernel'} in {runs} calls (recorded: {sorted(recorded)})")
+    else:
+        raise RuntimeError(f"torch.profiler recorded no device time of {kernel or 'any kernel'} in "
+                           f"{PROFILER_WINDOWS} windows; the kernel times cannot be measured")
     calls = sum(n for n, _ in events.values()) if kernel is not None else runs
     return total_us / 1e3 / calls
 
@@ -527,10 +564,27 @@ def phase_gatherbench(torch, hamming, gather) -> dict:
 
 K3_BS, K3_PS, K3_SS, K3_RS, K3_RRS = (1, 7, 64, 4096), (1, 5, 24, 96), (64, 128, 192), (3, 100, 128), (20, 64, 256)
 K4_DS, K4_KS = (3, 128, 1536), (1, 10, 100)
+K4_ROUTE_DS, K4_ROUTE_KS = (3, 4, 128, 1536, 4096), (1, 10, 32, 33, 100)
+K4_RRS, K4_BS = (20, 64, 256, 2048), (1, 7, 4096)
 K3_SWEEP_B = (1, 2, 4, 8, 16, 32, 64, 256, 1024, 4096)
+K4_SWEEP_B = (1, 64, 264, 512, 1024, 2048, 4096)
 IVF_RTOL = 1e-5  # of the magnitude of the summed terms: the sums run in another order
 IVF_TIMED_RUNS = 20
+K4_PROJ_ROWS, K4_PROJ_D, K4_PROJ_RR, K4_PROJ_B = 400_000, 1536, 256, 4096  # the projected traversal
 HTTP_IVF_POINTS = 20_000
+# Phase 9: the reference text bench's corpus (bench.py:806-850): 100,000
+# documents of 12 terms, Zipf (s = 1.1) over a 20,000-word vocabulary,
+# inserted 10,000 a write transaction; beside them a 128-d vector and three
+# fields to filter on
+HYBRID_POINTS, HYBRID_DIM, HYBRID_BATCH = 100_000, 128, 10_000
+HYBRID_VOCAB, HYBRID_TERMS, HYBRID_ZIPF = 20_000, 12, 1.1
+HYBRID_CATEGORIES, HYBRID_CATEGORY_ZIPF = 20, 1.5  # the rarest ~0.5%, the commonest ~45%
+HYBRID_YEARS = (1990, 2024)
+HYBRID_TAGS = 50
+HYBRID_PAGE = 75  # config/singleServer.yaml's maxSearchLimit
+HYBRID_QUERIES = 8  # held-out vectors, each kind of vector query runs on every one
+TEXT_RTOL = 1e-5  # the index keeps tf in f32
+WIDE_FILTER_SHARE, WIDE_QUERIES, WIDE_RECALL = 0.5, 256, 0.95
 HTTP_IVF_DIM = 128
 HTTP_IVF_RECALL = 0.95
 CELL_RECALL = 0.99
@@ -566,19 +620,70 @@ def k3_cases():
 
 
 def k4_cases():
-    """D x k x metric, 27 combinations; B cycles through 1, 7, 64 and 4096
-    (4096 only at D = 128, where the bench cell runs); then D x metric with
-    pools that repeat ids, deduplicated by the kernel. Each is (B, D, k,
-    metric, dedup)."""
+    """D x k x metric, 27 combinations (rr = max(64, 2k)); B cycles through
+    1, 7, 64 and 4096 (4096 only at D = 128, where the bench cell runs);
+    then D x metric with pools that repeat ids, deduplicated by the kernel
+    (9 more). Then the routes of the bulk-copy design: D in {3, 4, 128, 1536,
+    4096} x k in {1, 10, 32, 33, 100}, rr cycling through {20, 64, 256, 2048}
+    and B through {1, 7, 4096}; bases off the 16-byte grid; pools with every
+    id 2-3 times; a pool that is all empty. Each is (B, D, k, rr, metric,
+    dedup, layout)."""
+    metrics = ("euclidean", "dot", "cosine")
     cases = []
-    for i, (d, k, metric) in enumerate(
-            (d, k, m) for d in K4_DS for k in K4_KS for m in ("euclidean", "dot", "cosine")):
+    for i, (d, k, metric) in enumerate((d, k, m) for d in K4_DS for k in K4_KS for m in metrics):
         b = 4096 if d == 128 and i % 3 == 0 else (1, 7, 64)[i % 3]
-        cases.append((b, d, k, metric, False))
+        cases.append((b, d, k, max(64, 2 * k), metric, False, None))
     for d in K4_DS:
-        for metric in ("euclidean", "dot", "cosine"):
-            cases.append((4096 if d == 128 and metric == "euclidean" else 64, d, 10, metric, True))
+        for metric in metrics:
+            cases.append((4096 if d == 128 and metric == "euclidean" else 64, d, 10, 64, metric, True, None))
+    for i, (d, k) in enumerate((d, k) for d in K4_ROUTE_DS for k in K4_ROUTE_KS):
+        rr = K4_RRS[i % len(K4_RRS)]
+        # B = 4096 where the plain version's gather stays under 2^31 elements
+        b = K4_BS[i % len(K4_BS)]
+        if b * rr * d > 2**31:
+            b = 7
+        cases.append((b, d, k, rr, metrics[i % 3], i % 2 == 0, None))
+    cases += [
+        (64, 128, 10, 64, "euclidean", True, "offgrid"), (7, 1536, 33, 256, "dot", False, "offgrid"),
+        (4096, 128, 10, 64, "euclidean", True, "copies"), (64, 1536, 10, 256, "cosine", True, "copies"),
+        (7, 3, 32, 20, "dot", True, "copies"), (1, 4096, 10, 2048, "euclidean", True, "copies"),
+        (7, 128, 10, 64, "euclidean", True, "empty"), (1, 1536, 33, 256, "cosine", False, "empty"),
+    ]
     return cases
+
+
+def _k4_operands(torch, gen, b, d, rr, metric, dedup, layout, device):
+    """Random rows and queries (unit rows for cosine); pools of distinct ids,
+    a quarter repeated under dedup (or every id 2-3 times: "copies"); 20% of
+    the slots empty by their coarse score and 5% by an id of -1 ("empty":
+    every slot); "offgrid": the matrix one float off the 16-byte grid."""
+    cap = 5000
+    vectors = torch.randn((cap, d), generator=gen)
+    queries = torch.randn((b, d), generator=gen)
+    if metric == "cosine":
+        vectors = vectors / vectors.norm(dim=1, keepdim=True)
+        queries = queries / queries.norm(dim=1, keepdim=True)
+    pool = torch.argsort(torch.rand((b, cap), generator=gen), dim=1)[:, :rr].to(torch.int32)
+    if layout == "copies":
+        reps = torch.randint(2, 4, (b, rr), generator=gen).cumsum(1)
+        pool = torch.gather(pool, 1, torch.searchsorted(reps, torch.arange(rr).expand(b, rr).contiguous(),
+                                                        right=True))
+        pool = torch.gather(pool, 1, torch.argsort(torch.rand((b, rr), generator=gen), dim=1))
+    elif dedup:
+        again = torch.rand((b, rr), generator=gen) < 0.25
+        pool = torch.where(again, torch.gather(pool, 1, torch.randint(0, rr, (b, rr), generator=gen)), pool)
+    coarse = torch.randn((b, rr), generator=gen)
+    empty = torch.rand((b, rr), generator=gen) < 0.2
+    coarse[empty] = float("inf")
+    pool[empty & (torch.rand((b, rr), generator=gen) < 0.5)] = -1
+    if layout == "empty":
+        coarse[:] = float("inf")
+    ops = [t.to(device) for t in (vectors, queries, pool, coarse)]
+    if layout == "offgrid":
+        flat = torch.empty(cap * d + 1, device=device)
+        ops[0] = flat[1:].view(cap, d)
+        ops[0].copy_(vectors)
+    return ops
 
 
 def check_rows(torch, want, got, dist_of, atol, what) -> float:
@@ -693,25 +798,12 @@ def phase_ivf_kernels(torch, ivf_scan, ivf_rerank, device) -> dict:
             worst3 = max(worst3, check_rows(torch, want, got, dist_of, atol, what))
         finally:
             ivf_scan.SCRATCH_BYTES = budget
-    for b, d, k, metric, dedup in k4_cases():
-        cap = 5000
-        vectors = torch.randn((cap, d), generator=gen)
-        if metric == "cosine":
-            vectors = vectors / vectors.norm(dim=1, keepdim=True)
-        queries = torch.randn((b, d), generator=gen)
-        if metric == "cosine":
-            queries = queries / queries.norm(dim=1, keepdim=True)
-        rr = max(64, 2 * k)
-        pool = torch.stack([torch.randperm(cap, generator=gen)[:rr] for _ in range(b)]).to(torch.int32)
-        if dedup:  # a quarter of the slots repeat another slot's id
-            again = torch.rand((b, rr), generator=gen) < 0.25
-            pool = torch.where(again, torch.gather(pool, 1, torch.randint(0, rr, (b, rr), generator=gen)), pool)
-        coarse = torch.randn((b, rr), generator=gen)
-        empty = torch.rand((b, rr), generator=gen) < 0.2
-        coarse[empty] = float("inf")
-        pool[empty & (torch.rand((b, rr), generator=gen) < 0.5)] = -1
-        vectors, queries, pool, coarse = (t.to(device) for t in (vectors, queries, pool, coarse))
-        what = f"K4 B={b} D={d} k={k} {metric} dedup={dedup}"
+    routes = {}
+    for b, d, k, rr, metric, dedup, layout in k4_cases():
+        vectors, queries, pool, coarse = _k4_operands(torch, gen, b, d, rr, metric, dedup, layout, device)
+        route = ivf_rerank.route_of(vectors)
+        routes[route] = routes.get(route, 0) + 1
+        what = f"K4 B={b} D={d} k={k} rr={rr} {metric} dedup={dedup} layout={layout} route={route}"
         got = ivf_rerank.ivf_exact_rerank(vectors, queries, pool, coarse, k, metric, dedup)
         torch.cuda.synchronize()
         want = ivf_rerank.ivf_exact_rerank_plain(vectors, queries, pool, coarse, k, metric, dedup)
@@ -719,16 +811,84 @@ def phase_ivf_kernels(torch, ivf_scan, ivf_rerank, device) -> dict:
             gi = got[1].cpu()
             if any(len(set(row[row >= 0].tolist())) != int((row >= 0).sum()) for row in gi):
                 raise AssertionError(f"{what}: an id came back twice")
+        if layout == "empty" and not (torch.isinf(got[0]).all() and (got[1] == -1).all()):
+            raise AssertionError(f"{what}: an all-empty pool gave a result")
         worst4 = max(worst4, check_rows(torch, want, got, _k4_dist_of(torch, vectors, queries, metric),
                                         _k4_atol(torch, vectors, queries), what))
     log(f"[ivf-kernels] K3 == plain at {len(k3_cases())} shapes (chunked B, queries a chunk: {chunked}), "
         f"K4 == plain at "
-        f"{len(k4_cases())} shapes ({sum(c[4] for c in k4_cases())} with the dedup inside), distances within "
+        f"{len(k4_cases())} shapes ({sum(c[5] for c in k4_cases())} with the dedup inside; by route {routes}), "
+        f"distances within "
         f"{IVF_RTOL:g} of the terms' magnitude, ids by the tie rule; max |err| K3 {worst3:.3g}, K4 {worst4:.3g}")
     return {"k3_err": worst3, "k4_err": worst4}
 
 
-def phase_ivf_cell(torch, counted, argv=()) -> dict:
+def _k4_times(torch, ivf_rerank, ops, baseline=None) -> dict:
+    """K4's device time per call at ``ops`` (vectors, queries, pool, coarse,
+    k, metric, dedup) and at B = 1 (the first query), and at B = 1 a call's
+    time with its host work; the same for ``baseline`` (another K4 library,
+    e.g. the parent commit's, built from its source) when given."""
+    one = (ops[0], ops[1][:1].contiguous(), ops[2][:1].contiguous(), ops[3][:1].contiguous()) + tuple(ops[4:])
+    out = {}
+    sides = {"": ivf_rerank.ivf_exact_rerank}
+    if baseline is not None:
+        sides["base_"] = functools.partial(ivf_rerank.launch, baseline)
+    for tag, fn in sides.items():
+        out[tag + "ms"] = _device_ms(torch, functools.partial(fn, *ops), runs=IVF_TIMED_RUNS, kernel="rerank_kernel")
+        out[tag + "b1_ms"] = _device_ms(torch, functools.partial(fn, *one), runs=IVF_TIMED_RUNS,
+                                        kernel="rerank_kernel")
+        out[tag + "b1_call_ms"] = _median_call_ms(torch, functools.partial(fn, *one))
+    return out
+
+
+def _k4_bytes(torch, vectors, queries, pool, coarse, k) -> tuple:
+    """The least bytes of one K4 call: each distinct live pool row once, the
+    queries, the pool and coarse scores, the output; and the distinct rows."""
+    live = pool[(pool >= 0) & (pool < vectors.shape[0]) & torch.isfinite(coarse)]
+    rows = int(torch.unique(live).numel())
+    b, d = queries.shape
+    return rows * d * 4 + pool.numel() * 8 + b * d * 4 + b * k * 8, rows
+
+
+def _k4_line(name, t, bound_ms) -> str:
+    base = (f"; the parent's design {t['base_ms']:.4f} ms ({bound_ms / t['base_ms']:.1%}), B=1 "
+            f"{t['base_b1_ms']:.4f} ms on the device, {t['base_b1_call_ms']:.4f} ms a call" if "base_ms" in t else "")
+    return (f"{name}: {t['ms']:.4f} ms a call ({bound_ms / t['ms']:.1%} of the {bound_ms:.4f} ms bound), B=1 "
+            f"{t['b1_ms']:.4f} ms on the device, {t['b1_call_ms']:.4f} ms a call (median of 30){base}")
+
+
+def phase_k4_projected(torch, ivf_rerank, seed: int, baseline=None) -> dict:
+    """K4 at the projected traversal's shape (D = 1536, rr = 256, k = 10,
+    B = 4,096) over a seeded f32[400,000, 1536] table and random pools, with
+    the dedup on (the engine's copies): checked against the plain version,
+    then timed, its bound from the distinct rows the pools hold."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1536)
+    vectors = torch.randn((K4_PROJ_ROWS, K4_PROJ_D), generator=gen, device="cuda")
+    queries = torch.randn((K4_PROJ_B, K4_PROJ_D), generator=gen, device="cuda")
+    pool = torch.randint(0, K4_PROJ_ROWS, (K4_PROJ_B, K4_PROJ_RR), generator=gen, device="cuda", dtype=torch.int32)
+    coarse = torch.randn((K4_PROJ_B, K4_PROJ_RR), generator=gen, device="cuda")
+    ops = (vectors, queries, pool, coarse, LIMIT, "euclidean", True)
+    got = ivf_rerank.ivf_exact_rerank(*ops)
+    want = ivf_rerank.ivf_exact_rerank_plain(*ops)
+    err = check_rows(torch, want, got, _k4_dist_of(torch, vectors, queries, "euclidean"),
+                     _k4_atol(torch, vectors, queries), "K4 at the projected shape")
+    nbytes, rows = _k4_bytes(torch, vectors, queries, pool, coarse, LIMIT)
+    t = _k4_times(torch, ivf_rerank, ops, baseline)
+    t_plain = _device_ms(torch, functools.partial(ivf_rerank.ivf_exact_rerank_plain, *ops), runs=3)
+    one_bytes, _ = _k4_bytes(torch, vectors, queries[:1], pool[:1], coarse[:1], LIMIT)
+    res = {"max_abs_err": err, "plain_ms": t_plain, "bound_ms": _bound_ms(nbytes), "bytes": nbytes,
+           "distinct_rows": rows, "b1_bound_ms": _bound_ms(one_bytes), "route": ivf_rerank.route_of(vectors), **t}
+    log(f"[k4-projected] K4 == plain at D={K4_PROJ_D} rr={K4_PROJ_RR} k={LIMIT} B={K4_PROJ_B} over "
+        f"f32[{K4_PROJ_ROWS}, {K4_PROJ_D}] ({res['route']} route); max |err| {err:.3g}; {rows} distinct pool rows, "
+        f"{nbytes} B")
+    log("[k4-projected] " + _k4_line("K4", t, res["bound_ms"]) + f"; plain {t_plain:.4f} ms; B=1 bound "
+        f"{res['b1_bound_ms']:.5f} ms")
+    del vectors
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_ivf_cell(torch, counted, argv=(), baseline=None) -> dict:
     """The bench cell through annbench.main, then K3 and K4 on the operands
     that one real search of the cell passes them."""
     from semadb_tpu_torch.ops.kernels import ivf_rerank, ivf_scan
@@ -787,14 +947,23 @@ def phase_ivf_cell(torch, counted, argv=()) -> dict:
         # f32[B, p, S] scratch written once and read once
         "design": distinct * S * 4 + live_distinct * (r * elem + 4) + io_bytes + 2 * B * p * S * 4,
     }
-    live = pool_i[(pool_i >= 0) & torch.isfinite(pool_d)]
-    rows4 = int(torch.unique(live).numel())
-    k4_bytes = rows4 * idx.vectors.shape[1] * 4 + B * rr * 8 + B * idx.vectors.shape[1] * 4 + B * k * 8
+    k4_bytes, rows4 = _k4_bytes(torch, idx.vectors, q, pool_i, pool_d, k)
     chunks = -(-B // ivf_scan.batch_chunk(B, p, S))
     t3 = _k3_device_ms(torch, ivf_scan, k3_ops, chunks, IVF_TIMED_RUNS)
     t3_plain = _device_ms(torch, functools.partial(ivf_scan.ivf_probe_scan_plain, *k3_ops), runs=3)
-    t4 = _device_ms(torch, functools.partial(ivf_rerank.ivf_exact_rerank, *k4_ops), runs=IVF_TIMED_RUNS,
-                    kernel="rerank_kernel")
+    t4 = _k4_times(torch, ivf_rerank, k4_ops, baseline)
+    # K4 by B (the cell's first B queries), and on its element route (the
+    # same rows one float off the 16-byte grid): where its time goes
+    k4_sweep = {}
+    for b in K4_SWEEP_B:
+        sub = (k4_ops[0], q[:b].contiguous(), pool_i[:b].contiguous(), pool_d[:b].contiguous()) + tuple(k4_ops[4:])
+        k4_sweep[b] = _device_ms(torch, functools.partial(ivf_rerank.ivf_exact_rerank, *sub), runs=IVF_TIMED_RUNS,
+                                 kernel="rerank_kernel")
+    offgrid = torch.empty(idx.vectors.numel() + 1, device=idx.vectors.device)[1:].view_as(idx.vectors)
+    offgrid.copy_(idx.vectors)
+    t4_element = _device_ms(torch, functools.partial(ivf_rerank.ivf_exact_rerank, offgrid, *k4_ops[1:]),
+                            runs=IVF_TIMED_RUNS, kernel="rerank_kernel")
+    del offgrid
     t4_plain = _device_ms(torch, functools.partial(ivf_rerank.ivf_exact_rerank_plain, *k4_ops), runs=3)
     # K3 at smaller B (the cell's first B queries), device time per call, and
     # at B = 1 a call's time with its host launch work
@@ -810,8 +979,11 @@ def phase_ivf_cell(torch, counted, argv=()) -> dict:
           "design_bytes_ms": _bound_ms(k3_bytes["design"]), "distinct_clusters": distinct,
           "live_slots_distinct": live_distinct, "valid_slots": valid, "by_kernel_ms": t3["by_kernel_ms"],
           "kernels_per_call": t3["kernels_per_call"], "b_sweep_ms": sweep, "b1_call_ms": call1}
-    k4 = {"launches": launches["K4"], "max_abs_err": err4, "ms": t4, "plain_ms": t4_plain, "dedup": dedup,
-          "bound_ms": _bound_ms(k4_bytes), "bound_by": "bytes", "bytes": k4_bytes, "distinct_rows": rows4}
+    one_bytes, _ = _k4_bytes(torch, idx.vectors, q[:1], pool_i[:1], pool_d[:1], k)
+    k4 = {"launches": launches["K4"], "max_abs_err": err4, "plain_ms": t4_plain, "dedup": dedup,
+          "bound_ms": _bound_ms(k4_bytes), "bound_by": "bytes", "bytes": k4_bytes, "distinct_rows": rows4,
+          "b1_bound_ms": _bound_ms(one_bytes), "route": ivf_rerank.route_of(idx.vectors), **t4,
+          "b_sweep_ms": k4_sweep, "element_route_ms": t4_element}
     log(f"[ivf-cell] K3 == plain and K4 == plain on the cell's operands (B={B}, p={p}, S={S}, r={r}, rr={rr}, "
         f"{idx.slabs.dtype}, K4 dedup={dedup}); max |err| K3 {err3:.3g}, K4 {err4:.3g}")
     log(f"[ivf-cell] K3 {t3['ms']:.4f} ms a call, {t3['kernels_per_call']} device events a call, each one launch "
@@ -826,10 +998,13 @@ def phase_ivf_cell(torch, counted, argv=()) -> dict:
     log("[ivf-cell] K3 by B (device ms a call, the cell's first B queries): "
         + "; ".join(f"B={b} {v:.4f}" for b, v in sweep.items())
         + f"; B=1 a call with its host launch work (median of 30) {call1:.4f} ms")
-    log(f"[ivf-cell] K4 {t4:.4f} ms a call (dedup inside: {dedup}), plain {t4_plain:.4f} ms; bound "
-        f"{k4['bound_ms']:.4f} ms by bytes ({k4_bytes} B: {rows4} distinct pool rows), {k4['bound_ms'] / t4:.1%} "
-        f"of it")
-    return {"res": res, "profile": prof, "k3": k3, "k4": k4}
+    log(f"[ivf-cell] K4 (dedup inside: {dedup}, {k4['route']} route) bound {k4['bound_ms']:.4f} ms by bytes "
+        f"({k4_bytes} B: {rows4} distinct pool rows); B=1 bound {k4['b1_bound_ms']:.5f} ms; plain {t4_plain:.4f} ms")
+    log("[ivf-cell] " + _k4_line("K4", t4, k4["bound_ms"]))
+    log("[ivf-cell] K4 by B (device ms a call, the cell's first B queries): "
+        + "; ".join(f"B={b} {v:.4f}" for b, v in k4_sweep.items())
+        + f"; at B={B} on the element route (the rows off the 16-byte grid) {t4_element:.4f} ms")
+    return {"res": res, "profile": prof, "k3": k3, "k4": k4, "index": idx, "queries": test}
 
 
 def phase_ivf_http(torch, counted, device, seed: int, n_points: int = HTTP_IVF_POINTS) -> dict:
@@ -890,6 +1065,308 @@ def phase_ivf_http(torch, counted, device, seed: int, n_points: int = HTTP_IVF_P
     return {"recall": recall, "launches": launches}
 
 
+def phase_wide_filter(torch, counted, idx, queries, seed: int) -> dict:
+    """The widened-probe path at scale, on the bench cell's index: a seeded
+    random filter over half the points is wider than FILTER_EXACT_CAP, so
+    the search probes FILTER_WIDEN times as many clusters and K3 skips the
+    masked slots. Recall@10 against numpy's exact search over the members."""
+    from semadb_tpu_torch.index.ivf import FILTER_EXACT_CAP, FILTER_WIDEN
+
+    ids = np.fromiter(idx._loc.keys(), np.int64, len(idx._loc))
+    rng = np.random.default_rng([seed, 33])
+    fm = np.zeros(idx.capacity, bool)
+    fm[ids[rng.random(len(ids)) < WIDE_FILTER_SHARE]] = True
+    members = np.nonzero(fm)[0]
+    if len(members) <= max(idx._num_probes() * idx.slab, FILTER_EXACT_CAP):
+        raise AssertionError(f"{len(members)} members take the exact member path, not the widened probes")
+    q = np.ascontiguousarray(queries[:WIDE_QUERIES], np.float32)
+    _zero_counts(counted)
+    t0 = time.perf_counter()
+    _, got = idx.search_batch(q, LIMIT, filter_mask=fm)
+    search_s = time.perf_counter() - t0
+    launches = {nm: mod.LAUNCHES for nm, mod in counted}
+    if launches["K3"] <= 0 or launches["K4"] <= 0:
+        raise AssertionError(f"the widened-probe search did not run K3 and K4: {launches}")
+    # numpy: f32 scores over the members, then the best 64 of each query in f64
+    x = idx.vectors[torch.from_numpy(members).to(idx.device)].cpu().numpy()
+    xx = (x.astype(np.float64) ** 2).sum(1).astype(np.float32)
+    hits = 0
+    for lo in range(0, len(q), 64):
+        qs = q[lo:lo + 64]
+        cand = np.argpartition(xx[:, None] - 2.0 * (x @ qs.T), 64, axis=0)[:64].T
+        for b, rows in enumerate(cand):
+            d = ((x[rows].astype(np.float64) - qs[b].astype(np.float64)) ** 2).sum(1)
+            truth = set(members[rows[np.argsort(d, kind="stable")[:LIMIT]]].tolist())
+            hits += len(truth & set(got[lo + b].tolist()))
+    recall = hits / (LIMIT * len(q))
+    p = idx._num_probes()
+    log(f"[wide-filter] {len(members)} of {len(ids)} points in the filter (> FILTER_EXACT_CAP {FILTER_EXACT_CAP}): "
+        f"{len(q)} queries with p = {min(FILTER_WIDEN * p, idx.centroids.shape[0])} probes ({FILTER_WIDEN} x {p}) "
+        f"in {search_s * 1e3:.1f} ms; recall@10 {recall:.4f} against numpy's exact search over the members; "
+        f"launches {launches}")
+    if recall < WIDE_RECALL:
+        raise AssertionError(f"widened-probe recall@10 {recall} is below {WIDE_RECALL}")
+    return {"recall": recall, "launches": launches, "members": int(len(members))}
+
+
+def load_k4_baseline(source: str):
+    """Build and load another K4 source with the same C interface (e.g. the
+    parent commit's ``csrc/ivf_rerank.cu``, its ``ivf_common.cuh`` beside it),
+    to time beside the tree's K4; it launches through ``ivf_rerank.launch``
+    and counts nothing."""
+    import os
+
+    from semadb_tpu_torch.ops.kernels import ivf_rerank
+    from semadb_tpu_torch.utils.build import NVCC_FLAGS, build_library, nvcc
+
+    header = os.path.join(os.path.dirname(os.path.abspath(source)), "ivf_common.cuh")
+    path, _ = build_library("ivf_rerank_baseline", source, nvcc(), NVCC_FLAGS, (header,))
+    log(f"[build] K4 baseline {source}: built into {path}")
+    return ivf_rerank.bind(path)
+
+
+def hybrid_corpus(n: int, seed: int) -> dict:
+    """Phase 9's documents, from ``seed`` with numpy: vectors from
+    ``embedding_like(spread=0.5)`` (and held-out queries); ``body`` 12 terms
+    ``w<rank>``, Zipf over the vocabulary as the text bench draws them;
+    ``category`` one of 20, Zipf-skewed; ``year`` uniform over 1990-2024;
+    ``tags`` 1-3 distinct of 50."""
+    import uuid
+
+    from semadb_tpu_torch.tools.datasets import embedding_like
+
+    ds = embedding_like(n, HYBRID_DIM, HYBRID_QUERIES, spread=0.5, seed=seed + 31)
+    rng = np.random.default_rng([seed, 31])
+    ranks = np.minimum(rng.zipf(HYBRID_ZIPF, size=(n, HYBRID_TERMS)) - 1, HYBRID_VOCAB - 1)
+    p = 1.0 / np.arange(1, HYBRID_CATEGORIES + 1) ** HYBRID_CATEGORY_ZIPF
+    category = rng.choice(HYBRID_CATEGORIES, size=n, p=p / p.sum())
+    year = rng.integers(HYBRID_YEARS[0], HYBRID_YEARS[1] + 1, size=n)
+    n_tags = rng.integers(1, 4, size=n)
+    tag_order = np.argsort(rng.random((n, HYBRID_TAGS)), axis=1)[:, :3]
+    tags = np.zeros((n, HYBRID_TAGS), bool)
+    for j in range(3):
+        rows = np.nonzero(n_tags > j)[0]
+        tags[rows, tag_order[rows, j]] = True
+    ids = [str(uuid.UUID(bytes=rng.bytes(16), version=4)) for _ in range(n)]
+    return {"vectors": ds.train, "queries": ds.test, "ranks": ranks, "category": category, "year": year,
+            "tags": tags, "ids": ids, "row_of": {pid: i for i, pid in enumerate(ids)}}
+
+
+def _hybrid_doc(c: dict, i: int) -> dict:
+    return {"vector": c["vectors"][i].tolist(),
+            "body": " ".join(f"w{r}" for r in c["ranks"][i]),
+            "category": f"c{c['category'][i]:02d}", "year": int(c["year"][i]),
+            "tags": [f"t{j:02d}" for j in np.nonzero(c["tags"][i])[0]]}
+
+
+def _text_scores(c: dict, terms) -> tuple:
+    """Each document's TF-IDF score for the query terms (``index/text.py``:
+    Σ over the terms of count / length · log10(N / (df + 1))), and which
+    documents hold each term."""
+    ranks = c["ranks"]
+    n = len(ranks)
+    counts = np.stack([(ranks == t).sum(1) for t in terms])
+    df = (counts > 0).sum(1)
+    score = (counts / HYBRID_TERMS * np.log10(n / (df + 1))[:, None]).sum(0)
+    return score, counts > 0
+
+
+def phase_hybrid(torch, counted, device, seed: int, n_points: int = HYBRID_POINTS) -> dict:
+    """A hybrid collection over HTTP v2: a vectorIVF property beside text,
+    string, integer and stringArray ones, every query checked against a
+    plain evaluation over the generated documents."""
+    import uuid
+
+    from semadb_tpu_torch.models import Point
+    from semadb_tpu_torch.models.query import Query
+    from semadb_tpu_torch.ops.topk import tie_rule_errors
+    from semadb_tpu_torch.shard import pointstore
+    from semadb_tpu_torch.tools import dbpedia_bq as bq
+
+    name = "hybrid"
+    schema = {"vector": {"type": "vectorIVF", "vectorIVF": {"vectorSize": HYBRID_DIM, "distanceMetric": "euclidean"}},
+              "body": {"type": "text", "text": {"analyser": "standard"}},
+              "category": {"type": "string", "string": {"caseSensitive": False}},
+              "year": {"type": "integer", "integer": {}},
+              "tags": {"type": "stringArray", "stringArray": {"caseSensitive": False}}}
+    t0 = time.perf_counter()
+    c = hybrid_corpus(n_points, seed)
+    gen_s = time.perf_counter() - t0
+    data = c["vectors"].astype(np.float64)
+    row_of = c["row_of"]
+    lat: dict = {}
+    checked: dict = {}
+
+    def search(query, limit=10, kind=None):
+        t1 = time.perf_counter()
+        res = bq.http_json(srv.base, "POST", f"/{name}/points/search", {"query": query, "limit": limit})
+        if kind is not None:
+            lat.setdefault(kind, []).append(time.perf_counter() - t1)
+            checked[kind] = checked.get(kind, 0) + 1
+        return res["points"]
+
+    def members_of(query):
+        """Every point of a set query, as the shard's index manager finds it
+        (node ids to point ids through the shard's point store)."""
+        def on_shard(shard):
+            out = []
+
+            def reader(bm):
+                nodes = sorted(shard._index_manager(bm).search(Query.from_dict(query))[0])
+                out.extend(shard._uuid_strs.lookup(bm.get(pointstore.POINTS_BUCKET_NAME), nodes))
+
+            shard.db.read(reader)
+            return out
+
+        return [row_of[pid] for pid in srv.node.shard_manager.do_with_shard(col, col.shard_ids[0], on_shard)]
+
+    def near(q, flt=None, limit=10):
+        body = {"vector": q.tolist(), "operator": "near", "limit": limit}
+        if flt is not None:
+            body["filter"] = flt
+        return {"property": "vector", "vectorIVF": body}
+
+    cat, year, tags = c["category"], c["year"], c["tags"]
+    counts = np.bincount(cat, minlength=HYBRID_CATEGORIES)
+    rare, common = int(np.argmin(counts)), int(np.argmax(counts))
+    ta, tb = 3, 17
+    filters = [  # (kind, query, the members as a mask over the documents)
+        ("string equals, rare", {"property": "category", "string": {"value": f"c{rare:02d}", "operator": "equals"}},
+         cat == rare),
+        ("string equals, common", {"property": "category", "string": {"value": f"c{common:02d}",
+                                                                      "operator": "equals"}}, cat == common),
+        ("integer inRange", {"property": "year", "integer": {"value": 2003, "endValue": 2004, "operator": "inRange"}},
+         (year >= 2003) & (year <= 2004)),
+        ("integer greaterThanOrEquals", {"property": "year", "integer": {"value": 2024,
+                                                                         "operator": "greaterThanOrEquals"}},
+         year >= 2024),
+        ("stringArray containsAny", {"property": "tags", "stringArray": {"value": [f"t{ta:02d}", f"t{tb:02d}"],
+                                                                          "operator": "containsAny"}},
+         tags[:, [ta, tb]].any(1)),
+        ("stringArray containsAll", {"property": "tags", "stringArray": {"value": [f"t{ta:02d}", f"t{tb:02d}"],
+                                                                          "operator": "containsAll"}},
+         tags[:, [ta, tb]].all(1)),
+    ]
+    rng = np.random.default_rng([seed, 32])
+    mid = rng.integers(100, 1000, size=(4, 2))
+    text_queries = ([("common", op, [a, b]) for op in ("containsAny", "containsAll") for a, b in ((0, 4), (1, 6))]
+                    + [("mid", op, [int(a), int(b)]) for op in ("containsAny", "containsAll") for a, b in mid])
+
+    with tempfile.TemporaryDirectory(prefix="semadb_smoke_hybrid_") as root:
+        cfg = bq.slice_config(root)
+        _zero_counts(counted)
+        with bq.serving(cfg, device) as srv:
+            # one shard on the one device, so every search is exact over the collection
+            out = bq.http_json(srv.base, "POST", "", {"id": name, "indexSchema": schema, "shardPlacement": "device"})
+            assert out == {"message": "collection created"}, out
+            col = srv.node.get_collection(bq.USER["X-User-Id"], name)
+            col.user_plan = srv.plan
+            t0 = time.perf_counter()
+            for lo in range(0, n_points, HYBRID_BATCH):
+                pts = [Point.from_map(_hybrid_doc(c, i), uuid.UUID(c["ids"][i]))
+                       for i in range(lo, min(lo + HYBRID_BATCH, n_points))]
+                failed = srv.node.insert_points(col, pts)
+                assert failed == [], failed
+            ingest_s = time.perf_counter() - t0
+            assert len(col.shard_ids) == 1, col.shard_ids
+
+            # Set queries: the first page over HTTP, the whole set on the shard
+            for kind, query, mask in filters:
+                want = set(np.nonzero(mask)[0].tolist())
+                page = [row_of[p["_id"]] for p in search(query, HYBRID_PAGE, kind=kind)]
+                if len(page) != min(HYBRID_PAGE, len(want)) or not set(page) <= want:
+                    raise AssertionError(f"{kind}: a page of {len(page)} points, {len(set(page) - want)} not in "
+                                         f"the {len(want)} the documents give")
+                got = members_of(query)
+                if len(got) != len(set(got)) or set(got) != want:
+                    raise AssertionError(f"{kind}: {len(set(got))} points ({len(got)} with repeats), the "
+                                         f"documents give {len(want)}; {len(set(got) ^ want)} differ")
+
+            # vectorIVF filtered by each: numpy's brute force over the members
+            for kind, query, mask in filters:
+                members = np.nonzero(mask)[0]
+                for q in c["queries"]:
+                    pts = search(near(q, query), kind=f"vectorIVF filtered by {kind}")
+                    d = ((data[members] - q.astype(np.float64)) ** 2).sum(-1)
+                    order = np.argsort(d, kind="stable")[:10]
+                    dist = dict(zip(members.tolist(), d.tolist()))
+                    got_rows = [row_of[p["_id"]] for p in pts]
+                    atol = IVF_RTOL * ((np.sqrt(d.max()) + 2 * float(np.linalg.norm(q))) ** 2 + 1.0)
+                    errs = tie_rule_errors(d[order], members[order].tolist(), [p["_distance"] for p in pts],
+                                           got_rows, lambda r: dist.get(r, float("inf")), atol=atol)
+                    if errs:
+                        raise AssertionError(f"vectorIVF filtered by {kind}: {errs[:3]}")
+
+            # Text: scores by the formula, ids by the tie rule
+            for tag, op, terms in text_queries:
+                kind = f"text {op}, {tag} terms"
+                value = " ".join(f"w{t}" for t in terms)
+                pts = search({"property": "body", "text": {"value": value, "operator": op, "limit": 10}}, kind=kind)
+                score, has = _text_scores(c, terms)
+                sel = np.nonzero(has.all(0) if op == "containsAll" else has.any(0))[0]
+                order = sel[np.argsort(-score[sel], kind="stable")[:10]]
+                got_rows = [row_of[p["_id"]] for p in pts]
+                got_s = [p["_score"] for p in pts]
+                if any(not (has[:, r].all() if op == "containsAll" else has[:, r].any()) for r in got_rows):
+                    raise AssertionError(f"{kind}: a result does not hold the terms {value}")
+                if any(a < b for a, b in zip(got_s, got_s[1:])):
+                    raise AssertionError(f"{kind}: scores not descending: {got_s}")
+                atol = TEXT_RTOL * max(1e-12, float(score.max()))
+                errs = tie_rule_errors((-score[order]).tolist(), order.tolist(), [-x for x in got_s], got_rows,
+                                       lambda r: -score[r], atol=atol)
+                if errs:
+                    raise AssertionError(f"{kind} ({value}): {errs[:3]}")
+
+            # Hybrid: an unfiltered vectorIVF arm (weight 1) or a text arm (weight 0.5)
+            k3_before, k4_before = (mod.LAUNCHES for nm, mod in counted if nm in ("K3", "K4"))
+            for i, q in enumerate(c["queries"]):
+                terms = [int(t) for t in mid[i % len(mid)]]
+                text = {"property": "body", "text": {"value": " ".join(f"w{t}" for t in terms),
+                                                     "operator": "containsAny", "limit": 10, "weight": 0.5}}
+                vec = near(q)
+                vec["vectorIVF"]["weight"] = 1.0
+                alone_v = {p["_id"]: p["_distance"] for p in search(vec)}
+                alone_t = {p["_id"]: p["_score"] for p in search(text)}
+                pts = search({"property": "_or", "_or": [vec, text]}, limit=20, kind="hybrid _or")
+                if {p["_id"] for p in pts} != set(alone_v) | set(alone_t):
+                    raise AssertionError("hybrid _or: the points are not the union of its arms")
+                hs = [p["_hybridScore"] for p in pts]
+                if any(a < b for a, b in zip(hs, hs[1:])):
+                    raise AssertionError(f"hybrid _or: hybrid scores not descending: {hs}")
+                for p in pts:
+                    want = -alone_v.get(p["_id"], 0.0) * 1.0 + alone_t.get(p["_id"], 0.0) * 0.5
+                    if abs(p["_hybridScore"] - want) > 1e-5 * max(1.0, abs(want)):
+                        raise AssertionError(f"hybrid _or: {p['_hybridScore']} != {want}")
+            launches = {nm: mod.LAUNCHES for nm, mod in counted}
+            if launches["K3"] <= k3_before or launches["K4"] <= k4_before:
+                raise AssertionError(f"the hybrid searches did not run K3 and K4: {launches}")
+
+            # The exact member scan (K8, plain torch) at the common category:
+            # its node ids from the shard's own inverted index
+            def members_and_index(shard):
+                out = []
+                shard.db.read(lambda bm: out.append(shard._index_manager(bm).search(
+                    Query.from_dict(filters[1][1]))[0]))
+                return out[0], shard.device_indices["index/vectorIVF/vector"]
+
+            nodes, idx = srv.node.shard_manager.do_with_shard(col, col.shard_ids[0], members_and_index)
+            fm = np.zeros(idx.capacity, bool)
+            fm[np.fromiter(nodes, np.int64, len(nodes))] = True
+            scan = functools.partial(idx.search_batch_async, c["queries"][:1], 10, filter_mask=fm)
+            member_ms = _device_ms(torch, scan, runs=IVF_TIMED_RUNS)
+            member_call_ms = _median_call_ms(torch, scan)
+    p50 = {k: float(np.median(v)) * 1e3 for k, v in lat.items()}
+    log(f"[hybrid] {n_points} points (vectorIVF {HYBRID_DIM}-d, text, string, integer, stringArray) made in "
+        f"{gen_s:.2f} s, ingested through ClusterNode.insert_points {HYBRID_BATCH} a txn in {ingest_s:.2f} s = "
+        f"{n_points / ingest_s:.1f} points/s; one shard; category sizes rare {counts[rare]}, common {counts[common]}")
+    log(f"[hybrid] every check passed: {json.dumps(checked)}")
+    log("[hybrid] p50 ms over HTTP by kind: " + "; ".join(f"{k} {v:.2f}" for k, v in p50.items()))
+    log(f"[hybrid] the exact member scan over {int(fm.sum())} members (the common category): {member_ms:.4f} ms "
+        f"of device time a call, {member_call_ms:.4f} ms a call; launches in this phase {launches}")
+    return {"ingest_rate": n_points / ingest_s, "p50_ms": p50, "member_ms": member_ms,
+            "member_call_ms": member_call_ms, "launches": launches, "checked": checked}
+
+
 def _zero_counts(counted) -> None:
     """Every kernel's launch count to 0, before a path is driven."""
     for _, mod in counted:
@@ -902,6 +1379,9 @@ def _zero_counts(counted) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--k4-baseline", metavar="SOURCE",
+                        help="another K4 source (ivf_rerank.cu, its ivf_common.cuh beside it), e.g. the parent "
+                             "commit's, timed beside the tree's K4 in phases 8 and 8c")
     args = parser.parse_args()
 
     sys.modules["jax"] = None  # this script and the port never import jax
@@ -926,8 +1406,12 @@ def main() -> int:
     g_worst = phase_gather_kernel(torch, gather, device)
     gb = phase_gatherbench(torch, hamming, gather)
     kerr = phase_ivf_kernels(torch, ivf_scan, ivf_rerank, device)
-    cell = phase_ivf_cell(torch, counted)
+    baseline = load_k4_baseline(args.k4_baseline) if args.k4_baseline else None
+    cell = phase_ivf_cell(torch, counted, baseline=baseline)
+    proj = phase_k4_projected(torch, ivf_rerank, args.seed, baseline)
     phase_ivf_http(torch, counted, device, args.seed)
+    hybrid = phase_hybrid(torch, counted, device, args.seed)
+    wide = phase_wide_filter(torch, counted, cell["index"], cell["queries"], args.seed)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     ivf_shape = (f"the IVF bench cell's operands: B={cell['res']['batch']} queries, p={cell['res']['probes']}, "
                  f"C={cell['res']['clusters']}, S={cell['res']['slab']}, {cell['res']['slab_dtype']} slabs; "
@@ -984,6 +1468,8 @@ def main() -> int:
         "b1_call_ms": cell["k3"]["b1_call_ms"],
         "bound_bytes": cell["k3"]["bytes"],
         "per_query_bound_ms": cell["k3"]["per_query_bound_ms"],
+        "launches_hybrid": hybrid["launches"]["K3"],
+        "launches_wide_filter": wide["launches"]["K3"],
         "shape": ivf_shape + "; every device event of a call (kernels and memset)",
     }, {
         "name": "K4 ivf_exact_rerank (copy dedup and exact rerank of the coarse pool)",
@@ -991,11 +1477,17 @@ def main() -> int:
         "source": "semadb_tpu_torch/csrc/ivf_rerank.cu",
         "replaces": "semadb_tpu/index/ivf.py:510",
         **{key: cell["k4"][key] for key in ("launches", "ms", "plain_ms", "bound_ms", "bound_by")},
-        "max_abs_err": max(kerr["k4_err"], cell["k4"]["max_abs_err"]),
+        "max_abs_err": max(kerr["k4_err"], cell["k4"]["max_abs_err"], proj["max_abs_err"]),
         "library_ms": None,
         "library": LIBRARY_NONE_K4,
         "bound_bytes": cell["k4"]["bytes"],
         "shape": ivf_shape + f", k=10, rr=64 with the copies, dedup inside: {cell['k4']['dedup']}",
+        **{key: cell["k4"][key] for key in cell["k4"] if key.startswith(("b1_", "base_")) or key == "route"},
+        "b_sweep_ms": {str(b): v for b, v in cell["k4"]["b_sweep_ms"].items()},
+        "element_route_ms": cell["k4"]["element_route_ms"],
+        "projected": {key: v for key, v in proj.items() if key != "max_abs_err"},
+        "launches_hybrid": hybrid["launches"]["K4"],
+        "launches_wide_filter": wide["launches"]["K4"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

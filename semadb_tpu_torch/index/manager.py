@@ -1,8 +1,11 @@
 """Index manager: schema-driven dispatch of point changes + query execution.
 
 Port of ``semadb_tpu/index/manager.py`` for the index types the port has:
-``vectorFlat`` and ``vectorIVF``. A schema naming any other index type, or a
-product quantizer, is refused with a ``ValidationError`` that names it
+the vector engines ``vectorFlat`` and ``vectorIVF`` on the device, and the
+host indices ``text``, ``string``, ``integer``, ``float`` and
+``stringArray`` (inverted postings and TF-IDF text over the store). A schema
+naming any other index type (``vectorVamana``, ``vectorFused``), or a product
+quantizer, is refused with a ``ValidationError`` that names it
 (:func:`check_supported`, called where a collection is created and where a
 shard is opened).
 
@@ -14,7 +17,9 @@ UUIDs directly, and vector queries compute their filter subquery first and
 hand the allowed-id set to the index as a mask.
 
 Device indices live across transactions in a host-side registry owned by
-the Shard; new ones are created on the manager's ``device``.
+the Shard; new ones are created on the manager's ``device``. The host
+indices are built over their bucket in each transaction; their decoded
+postings survive transactions in the Shard's ``host_caches``.
 """
 
 from __future__ import annotations
@@ -26,7 +31,9 @@ import numpy as np
 import torch
 
 from semadb_tpu_torch.index.flat import IndexFlat
+from semadb_tpu_torch.index.inverted import IndexInverted, IndexInvertedArray, PostingsCache
 from semadb_tpu_torch.index.ivf import IndexIVF
+from semadb_tpu_torch.index.text import IndexText, TextCaches, _doc_codec, _postings_codec
 from semadb_tpu_torch.models import constants as C
 from semadb_tpu_torch.models.errors import NotFoundError, ValidationError
 from semadb_tpu_torch.models.point import SearchResult, access_nested, decode_point_data
@@ -34,6 +41,7 @@ from semadb_tpu_torch.models.query import Query
 from semadb_tpu_torch.models.schema import IndexSchema
 from semadb_tpu_torch.shard import pointstore
 from semadb_tpu_torch.store.diskstore import BucketManager
+from semadb_tpu_torch.utils.itemcache import ItemCache
 from semadb_tpu_torch.vectorstore import PRODUCT, QuantConfig
 
 OP_INSERT = "insert"
@@ -48,13 +56,26 @@ _ENGINES = {
     C.INDEX_TYPE_VECTOR_FLAT: ("vector_flat", IndexFlat),
     C.INDEX_TYPE_VECTOR_IVF: ("vector_ivf", IndexIVF),
 }
-SUPPORTED_INDEX_TYPES = tuple(_ENGINES)
+VECTOR_INDEX_TYPES = tuple(_ENGINES)
+# The host index types (no device state): the attribute of a query that
+# holds a type's options. string, integer and float name their
+# IndexInverted kind too.
+_HOST_TYPES = {
+    C.INDEX_TYPE_TEXT: "text",
+    C.INDEX_TYPE_STRING: "string",
+    C.INDEX_TYPE_INTEGER: "integer",
+    C.INDEX_TYPE_FLOAT: "float_",
+    C.INDEX_TYPE_STRING_ARRAY: "string_array",
+}
+SUPPORTED_INDEX_TYPES = VECTOR_INDEX_TYPES + tuple(_HOST_TYPES)
 
 
 def check_supported(schema: IndexSchema) -> None:
     """Refuse a schema the port cannot serve yet, naming what is missing."""
     for prop, params in schema.items():
-        if params.type not in SUPPORTED_INDEX_TYPES:
+        if params.type in _HOST_TYPES:
+            continue
+        if params.type not in VECTOR_INDEX_TYPES:
             raise ValidationError(
                 f"index type {params.type} (property {prop}) is not supported by "
                 f"semadb_tpu_torch yet; supported: {', '.join(SUPPORTED_INDEX_TYPES)}"
@@ -120,11 +141,43 @@ class IndexManager:
         schema: IndexSchema,
         device_registry: Dict[str, object],
         device: torch.device,
+        host_caches: Dict[str, object],
     ):
         self.bm = bm
         self.schema = schema
         self.devices = device_registry  # bucket_name → IndexFlat | IndexIVF
         self.device = torch.device(device)
+        # bucket_name → PostingsCache | TextCaches: decoded postings owned by
+        # the Shard, which outlive this per-transaction manager
+        self.host_caches = host_caches
+
+    def _postings_cache(self, bucket_name: str):
+        cache = self.host_caches.get(bucket_name)
+        if cache is None:
+            cache = self.host_caches[bucket_name] = PostingsCache()
+        return cache
+
+    def _text_cache(self, bucket_name: str, bucket):
+        cache = self.host_caches.get(bucket_name)
+        if cache is None:
+            cache = self.host_caches[bucket_name] = TextCaches(
+                postings=ItemCache(bucket, _postings_codec()),
+                docs=ItemCache(bucket, _doc_codec()),
+            )
+        return cache
+
+    def _host_index(self, prop: str, params):
+        """The text or inverted index of a property over its bucket."""
+        name = self.bucket_name(params.type, prop)
+        bucket = self.bm.get(name)
+        if params.type == C.INDEX_TYPE_TEXT:
+            return IndexText(bucket, params.text.analyser, cache=self._text_cache(name, bucket))
+        cache = self._postings_cache(name)
+        if params.type == C.INDEX_TYPE_STRING_ARRAY:
+            case_sensitive = params.string_array.case_sensitive if params.string_array else False
+            return IndexInvertedArray(bucket, case_sensitive, cache=cache)
+        case_sensitive = params.string.case_sensitive if params.type == C.INDEX_TYPE_STRING and params.string else True
+        return IndexInverted(bucket, params.type, case_sensitive, cache=cache)
 
     @staticmethod
     def bucket_name(itype: str, prop: str) -> str:
@@ -154,18 +207,37 @@ class IndexManager:
                 prev, cur, op = get_operation(prop, ch.previous_data, ch.new_data)
                 if op == OP_SKIP:
                     continue
-                per_property.setdefault(prop, []).append((ch.node_id, cur, op))
+                per_property.setdefault(prop, []).append((ch.node_id, prev, cur, op))
         device_deltas: Dict[str, list] = {}
         for prop, items in per_property.items():
             params = self.schema.get(prop)
+            if params.type in _HOST_TYPES:
+                self._dispatch_host(prop, params, items)
+                continue
             idx = self._device_index(prop, params, register=True)
             delta = [
                 (nid, np.asarray(cur, np.float32) if op != OP_DELETE else None)
-                for nid, cur, op in items
+                for nid, _, cur, op in items
             ]
             idx.insert_update_delete(delta)
             device_deltas[self.bucket_name(params.type, prop)] = delta
         return device_deltas
+
+    def _dispatch_host(self, prop: str, params, items: list) -> None:
+        """Apply one property's changes to its text or inverted index. An
+        inverted index finds the postings to leave by the old value; the
+        text index keeps each document's terms itself."""
+        idx = self._host_index(prop, params)
+        by_value = params.type != C.INDEX_TYPE_TEXT
+        for nid, prev, cur, op in items:
+            key = (nid, prev) if by_value else (nid,)
+            if op == OP_INSERT:
+                idx.insert(nid, cur)
+            elif op == OP_UPDATE:
+                idx.update(*key, cur)
+            else:
+                idx.delete(*key)
+        idx.flush()  # cached mutations persist once per batch
 
     # -- search ------------------------------------------------------------
     def search(self, q: Query) -> Tuple[Set[int], List[SearchResult]]:
@@ -178,6 +250,8 @@ class IndexManager:
         params = self.schema.get(q.property)
         if params is None:
             raise ValidationError(f"property {q.property} not found in index schema")
+        if params.type in _HOST_TYPES:
+            return self._search_host(q, params)
         opts = _vector_options(params, q)
         if opts is None:
             raise ValidationError(f"search not supported for type {params.type}")
@@ -203,6 +277,20 @@ class IndexManager:
             )
         return rset, results
 
+    def _search_host(self, q: Query, params) -> Tuple[Set[int], List[SearchResult]]:
+        """A text search (scored results, after its own filter) or an
+        inverted-index lookup (a set of node ids, no results)."""
+        opts = getattr(q, _HOST_TYPES[params.type])
+        if opts is None:
+            raise ValidationError(f"a query on {q.property} needs {params.type} options")
+        idx = self._host_index(q.property, params)
+        if params.type == C.INDEX_TYPE_TEXT:
+            filter_set = None if opts.filter is None else self.search(opts.filter)[0]
+            return idx.search(opts, filter_set)
+        if params.type == C.INDEX_TYPE_STRING_ARRAY:
+            return idx.search(opts.value, opts.operator), []
+        return idx.search(opts.value, opts.end_value, opts.operator), []
+
     def _index_search(self, idx, opts, vecs: np.ndarray, filter_set: Optional[Set[int]]):
         """One search call on a vector index (the flat index ignores the
         probe count)."""
@@ -214,8 +302,9 @@ class IndexManager:
     def _filter_mask(idx, filter_set: Optional[Set[int]]) -> Optional[np.ndarray]:
         if filter_set is None:
             return None
+        ids = np.fromiter(filter_set, np.int64, len(filter_set))
         mask = np.zeros(idx.capacity, bool)
-        mask[[i for i in filter_set if i < idx.capacity]] = True
+        mask[ids[ids < idx.capacity]] = True
         return mask
 
     def search_batch(self, queries: List[Query]) -> List[Tuple[Set[int], List[SearchResult]]]:

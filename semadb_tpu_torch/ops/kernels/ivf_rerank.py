@@ -3,9 +3,13 @@
 Replaces the XLA program of ``semadb_tpu/index/ivf.py`` · ``_ivf_query`` that
 deduplicates (``:510-515``) and reranks the pool (``:517-543``). The kernel source is
 ``semadb_tpu_torch/csrc/ivf_rerank.cu`` (with ``csrc/ivf_common.cuh``); it is
-bound by bytes, and its header says what the design does about that. It is
-built like K1 and K2: ``nvcc`` for ``sm_90a`` into ``semadb_tpu_torch/_build/``
-at first use, loaded with ``ctypes``.
+bound by bytes, and its header says what the design does about that: rows
+come into shared memory by the Tensor Memory Accelerator's bulk copies (the
+``bulk`` route), or, when a row is not a run of whole 16-byte units on the
+16-byte grid (``D % 4 != 0`` or a base pointer off the grid), by element
+loads (the ``element`` route; :func:`route_of`). It is built like K1 and
+K2: ``nvcc`` for ``sm_90a`` into ``semadb_tpu_torch/_build/`` at first use,
+loaded with ``ctypes``.
 
 :func:`ivf_exact_rerank` computes the exact metric distance (squared
 euclidean, taken directly as ``sum (x - q)^2``; ``-dot``; ``1 - dot``)
@@ -45,6 +49,7 @@ MAX_POOL = 2048
 MAX_D = 4096
 NIL = -1
 RCH = 64  # pool slots per step of the plain version's chunked gather
+ROUTES = ("bulk", "element")
 
 LAUNCHES = 0
 BUILD_LOG = ""  # nvcc's output of the build this process did (ptxas -v)
@@ -113,25 +118,41 @@ def ivf_exact_rerank(
             raise ValueError(f"K4 operands must all lie on one CUDA device; got {[str(x.device) for x in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("K4 operands must be contiguous")
+    if pool.shape[0] == 0:
+        return launch(None, vectors, queries, pool, coarse, k, metric, dedup)
+    out = launch(_library(), vectors, queries, pool, coarse, k, metric, dedup)
+    global LAUNCHES
+    with _LOCK:
+        LAUNCHES += 1
+    return out
+
+
+def route_of(vectors: torch.Tensor) -> str:
+    """The kernel's route for this ``vectors`` matrix (the source's
+    ``bulk_route``)."""
+    return "bulk" if vectors.shape[1] % 4 == 0 and vectors.data_ptr() % 16 == 0 else "element"
+
+
+def launch(lib, vectors, queries, pool, coarse, k: int, metric: str, dedup: bool):
+    """One launch of a K4 library (:func:`bind`) on checked, contiguous
+    operands on one CUDA device (none for an empty batch, which needs no
+    ``lib``); counts nothing. Raises if it is refused."""
     cap, D = vectors.shape
     B, rr = pool.shape
+    dev = queries.device
     out_d = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
     if B == 0:
         return out_d, out_i
-    lib = _library()
-    global LAUNCHES
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.semadb_ivf_exact_rerank(
             vectors.data_ptr(), cap, D, queries.data_ptr(), pool.data_ptr(), coarse.data_ptr(),
             B, rr, k, METRIC_FLAGS[metric], int(dedup), out_d.data_ptr(), out_i.data_ptr(), stream,
         )
-        if rc != 0:
-            msg = lib.semadb_ivf_rerank_error_string(rc).decode()
-            raise RuntimeError(f"K4 launch failed ({rc}: {msg}) at cap={cap} D={D} B={B} rr={rr} k={k}")
-        with _LOCK:
-            LAUNCHES += 1
+    if rc != 0:
+        msg = lib.semadb_ivf_rerank_error_string(rc).decode()
+        raise RuntimeError(f"K4 launch failed ({rc}: {msg}) at cap={cap} D={D} B={B} rr={rr} k={k}")
     return out_d, out_i
 
 
@@ -153,21 +174,25 @@ def _check_operands(vectors, queries, pool, coarse, k, metric) -> None:
         raise ValueError(f"need 1 <= rr <= {MAX_POOL}, 1 <= D <= {MAX_D}, k >= 1 and a non-empty vectors matrix")
 
 
+def bind(path: str):
+    """Load a library built from a K4 source with this C interface."""
+    lib = ctypes.CDLL(path)
+    lib.semadb_ivf_exact_rerank.restype = ctypes.c_int
+    lib.semadb_ivf_exact_rerank.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.semadb_ivf_rerank_error_string.restype = ctypes.c_char_p
+    lib.semadb_ivf_rerank_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
 def _library():
     """Build (once per source hash) and load the kernel library."""
     global _LIB, BUILD_LOG
     with _LOCK:
-        if _LIB is not None:
-            return _LIB
-        path, BUILD_LOG = build_library("ivf_rerank", SOURCE, nvcc(), NVCC_FLAGS, HEADERS)
-        lib = ctypes.CDLL(path)
-        lib.semadb_ivf_exact_rerank.restype = ctypes.c_int
-        lib.semadb_ivf_exact_rerank.argtypes = [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.semadb_ivf_rerank_error_string.restype = ctypes.c_char_p
-        lib.semadb_ivf_rerank_error_string.argtypes = [ctypes.c_int]
-        _LIB = lib
-        return lib
+        if _LIB is None:
+            path, BUILD_LOG = build_library("ivf_rerank", SOURCE, nvcc(), NVCC_FLAGS, HEADERS)
+            _LIB = bind(path)
+        return _LIB

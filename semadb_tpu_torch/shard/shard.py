@@ -1,8 +1,9 @@
 """Shard: the per-shard storage + index engine.
 
 Port of ``semadb_tpu/shard/shard.py`` over the port's engines
-(``vectorFlat`` and ``vectorIVF`` on an explicit torch device); the journal
-and snapshot formats are the JAX package's, so its shard files open here.
+(``vectorFlat`` and ``vectorIVF`` on an explicit torch device, and the text
+and inverted indices on the host); the journal and snapshot formats are the
+JAX package's, so its shard files open here.
 
 Parity reference: shard/shard.go — CRUD over points inside one store
 transaction with index dispatch, update-merge semantics with the
@@ -33,7 +34,12 @@ import torch
 
 from semadb_tpu_torch.index.flat import IndexFlat
 from semadb_tpu_torch.index.ivf import IndexIVF
-from semadb_tpu_torch.index.manager import IndexManager, IndexPointChange, check_supported
+from semadb_tpu_torch.index.manager import (
+    VECTOR_INDEX_TYPES,
+    IndexManager,
+    IndexPointChange,
+    check_supported,
+)
 from semadb_tpu_torch.models import constants as C
 from semadb_tpu_torch.models.collection import Collection
 from semadb_tpu_torch.models.errors import ExistsError, ValidationError
@@ -98,10 +104,16 @@ class Shard:
         # node-id → uuid-string cache for the id-only serving path;
         # delete_points invalidates freed ids (see UuidStrCache docstring).
         self._uuid_strs = pointstore.UuidStrCache()
+        # bucket name → PostingsCache | TextCaches: decoded postings of the
+        # host indices surviving txns (cache/manager.go:116-303); scrapped
+        # on txn failure.
+        self._host_caches: Dict[str, object] = {}
         self._load_device_indices()
 
     def _index_manager(self, bm) -> IndexManager:
-        return IndexManager(bm, self.collection.index_schema, self.device_indices, self.device)
+        return IndexManager(
+            bm, self.collection.index_schema, self.device_indices, self.device, self._host_caches
+        )
 
     # -- device index persistence -----------------------------------------
     def _read_index_from(self, bm, name: str, params):
@@ -155,7 +167,7 @@ class Shard:
     def _load_one_index(self, name: str):
         """Registry miss handler: reload a (possibly evicted) index."""
         params = self._params_for_bucket(name)
-        if params is None:
+        if params is None or params.type not in VECTOR_INDEX_TYPES:
             return None
         out = [None]
 
@@ -170,6 +182,8 @@ class Shard:
             self._delta_txns = 0
             self._journal_bytes = 0
             for prop, params in self.collection.index_schema.items():
+                if params.type not in VECTOR_INDEX_TYPES:
+                    continue
                 name = IndexManager.bucket_name(params.type, prop)
                 idx, n_deltas, n_bytes = self._read_index_from(bm, name, params)
                 if idx is None:
@@ -206,6 +220,9 @@ class Shard:
         except BaseException:
             self.device_indices.clear()
             self._load_device_indices()
+            # The host postings caches may hold the rolled-back mutations
+            for c in self._host_caches.values():
+                c.scrap()
             raise
         if (FLUSH_EVERY_TXNS and self._delta_txns >= FLUSH_EVERY_TXNS) or (
             FLUSH_JOURNAL_MB and self._journal_bytes >= FLUSH_JOURNAL_MB * 2**20

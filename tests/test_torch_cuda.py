@@ -188,17 +188,6 @@ IVF_SCAN_CASES = [
 IVF_RTOL = 1e-5
 
 
-def _rows_agree(want, got, dist_of, atol):
-    """Every row of got (d, i) against want by the tie rule; unique ids."""
-    wd, wi = (t.cpu().numpy() for t in want)
-    gd, gi = (t.cpu().numpy() for t in got)
-    assert gd.shape == wd.shape
-    for b in range(wd.shape[0]):
-        errs = tie_rule_errors(wd[b], wi[b].tolist(), gd[b], gi[b].tolist(),
-                               lambda i, b=b: dist_of(b, i), atol=float(atol[b]))
-        assert not errs, (b, errs[:3])
-
-
 def _pools_agree(want, got, dist_of, atol):
     """Every row of got (d, i) against want by the multiset tie rule (a pool
     may hold an id twice)."""
@@ -264,35 +253,70 @@ def test_ivf_probe_scan_matches_plain(cuda, b, p, s, r, rr, bf16, masked, layout
     _pools_agree(want, got, dist_of, atol)
 
 
-IVF_RERANK_CASES = [(1, 3, 1, "euclidean", False), (7, 128, 10, "dot", False), (64, 1536, 100, "cosine", False),
-                    (4096, 128, 10, "euclidean", False), (33, 100, 10, "euclidean", False), (5, 8, 100, "dot", False),
-                    (4096, 128, 10, "euclidean", True), (64, 100, 10, "dot", True), (7, 1536, 100, "cosine", True)]
+# (B, D, k, rr, metric, dedup, layout). Routes: bulk copies at D % 4 == 0
+# on the 16-byte grid (D = 4 through 4096; stages of 64, 32, 2 and 1 rows),
+# element loads at D = 3 and 100 and off the grid ("offgrid": the matrix a
+# view one float in). Stage boundaries: rr = 20, 100 and 255 are no multiple
+# of a stage. "copies": every id 2-3 times under dedup, so whole stages' worth
+# of slots drop; "front-empty": the first half of every pool empty; "empty":
+# no live slot. The warp selection at k <= 32, the block sort past it, k > rr.
+IVF_RERANK_CASES = [
+    (1, 3, 1, 64, "euclidean", False, None), (7, 128, 10, 64, "dot", False, None),
+    (64, 1536, 100, 256, "cosine", False, None), (4096, 128, 10, 64, "euclidean", False, None),
+    (33, 100, 10, 64, "euclidean", False, None), (5, 8, 100, 256, "dot", False, None),
+    (4096, 128, 10, 64, "euclidean", True, None), (64, 100, 10, 64, "dot", True, None),
+    (7, 1536, 100, 256, "cosine", True, None),
+    (1, 128, 10, 64, "euclidean", True, None), (1, 1536, 10, 256, "euclidean", True, None),
+    (9, 4, 10, 64, "dot", False, None), (3, 4096, 10, 20, "euclidean", False, None),
+    (7, 128, 32, 100, "euclidean", False, None), (7, 128, 33, 100, "cosine", False, None),
+    (5, 1536, 32, 255, "dot", True, None), (5, 1536, 33, 255, "euclidean", True, None),
+    (7, 128, 32, 20, "euclidean", False, None), (7, 128, 100, 20, "dot", False, None),
+    (2, 128, 10, 2048, "euclidean", True, None), (2, 128, 100, 2048, "euclidean", True, None),
+    (64, 128, 10, 64, "euclidean", True, "offgrid"), (7, 1536, 33, 256, "dot", False, "offgrid"),
+    (300, 128, 10, 64, "euclidean", True, "copies"), (7, 1536, 10, 256, "cosine", True, "copies"),
+    (7, 3, 32, 20, "dot", True, "copies"), (64, 128, 10, 100, "euclidean", True, "front-empty"),
+    (7, 128, 10, 64, "euclidean", True, "empty"), (1, 1536, 33, 256, "cosine", False, "empty"),
+]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,d,k,metric,dedup", IVF_RERANK_CASES)
-def test_ivf_exact_rerank_matches_plain(cuda, b, d, k, metric, dedup):
-    gen = torch.Generator().manual_seed(b + d + k)
+@pytest.mark.parametrize("b,d,k,rr,metric,dedup,layout", IVF_RERANK_CASES)
+def test_ivf_exact_rerank_matches_plain(cuda, b, d, k, rr, metric, dedup, layout):
+    gen = torch.Generator().manual_seed(b + d + k + rr)
     cap = 3000
     vectors = torch.randn((cap, d), generator=gen)
     queries = torch.randn((b, d), generator=gen)
     if metric == "cosine":
         vectors = vectors / vectors.norm(dim=1, keepdim=True)
         queries = queries / queries.norm(dim=1, keepdim=True)
-    rr = max(64, 2 * k)
-    pool = torch.stack([torch.randperm(cap, generator=gen)[:rr] for _ in range(b)]).to(torch.int32)
-    if dedup:  # a quarter of the slots repeat another slot's id
+    pool = torch.argsort(torch.rand((b, cap), generator=gen), dim=1)[:, :rr].to(torch.int32)
+    if layout == "copies":  # every id 2 or 3 times
+        reps = torch.randint(2, 4, (b, rr), generator=gen).cumsum(1)
+        pool = torch.gather(pool, 1, torch.searchsorted(reps, torch.arange(rr).expand(b, rr).contiguous(), right=True))
+        pool = torch.gather(pool, 1, torch.argsort(torch.rand((b, rr), generator=gen), dim=1))
+    elif dedup:  # a quarter of the slots repeat another slot's id
         again = torch.rand((b, rr), generator=gen) < 0.25
         pool = torch.where(again, torch.gather(pool, 1, torch.randint(0, rr, (b, rr), generator=gen)), pool)
     coarse = torch.randn((b, rr), generator=gen)
     coarse[torch.rand((b, rr), generator=gen) < 0.2] = float("inf")
     pool[torch.rand((b, rr), generator=gen) < 0.05] = -1
-    ops = [t.to(cuda) for t in (vectors, queries, pool, coarse)]
+    if layout == "front-empty":
+        coarse[:, : rr // 2] = float("inf")
+    elif layout == "empty":
+        coarse[:] = float("inf")
+    dev = [t.to(cuda) for t in (vectors, queries, pool, coarse)]
+    if layout == "offgrid":  # the same rows, one float off the 16-byte grid
+        flat = torch.empty(cap * d + 1, device=cuda)
+        dev[0] = flat[1:].view(cap, d)
+        dev[0].copy_(vectors)
+    assert ivf_rerank.route_of(dev[0]) == ("bulk" if d % 4 == 0 and layout != "offgrid" else "element")
     before = ivf_rerank.LAUNCHES
-    got = ivf_rerank.ivf_exact_rerank(*ops, k, metric, dedup)
+    got = ivf_rerank.ivf_exact_rerank(*dev, k, metric, dedup)
     torch.cuda.synchronize()
     assert ivf_rerank.LAUNCHES == before + 1
-    want = ivf_rerank.ivf_exact_rerank_plain(*ops, k, metric, dedup)
+    want = ivf_rerank.ivf_exact_rerank_plain(*dev, k, metric, dedup)
+    if layout == "empty":
+        assert torch.isinf(got[0]).all() and (got[1] == -1).all()
 
     def dist_of(bb, i):
         if i == -1:
@@ -304,10 +328,10 @@ def test_ivf_exact_rerank_matches_plain(cuda, b, d, k, metric, dedup):
 
     xmax = float(vectors.norm(dim=1).max())
     atol = IVF_RTOL * ((xmax + queries.double().norm(dim=1)) ** 2 + 1.0)
-    if dedup:  # each id once, so the tie rule applies as it stands
-        _rows_agree(want, got, dist_of, atol)
-    else:
-        _pools_agree(want, got, dist_of, atol)
+    if dedup:  # each id once; places past the live ones are -1, so compare as multisets
+        gi = got[1].cpu()
+        assert all(len(set(row[row >= 0].tolist())) == int((row >= 0).sum()) for row in gi)
+    _pools_agree(want, got, dist_of, atol)
 
 
 @pytest.mark.cuda

@@ -280,8 +280,9 @@ def test_port_refuses_unported_index_types(tmp_path):
     try:
         for schema, name in (
             ({"v": {"type": "vectorVamana", "vectorVamana": {"vectorSize": 4, "distanceMetric": "euclidean"}}}, "vectorVamana"),
-            ({"v": {"type": "vectorFlat", "vectorFlat": {"vectorSize": 4, "distanceMetric": "euclidean"}},
-              "title": {"type": "text", "text": {"analyser": "standard"}}}, "text"),
+            ({"v": {"type": "vectorFused", "vectorFused": {"views": [
+                {"vectorSize": 4, "distanceMetric": "euclidean"}, {"vectorSize": 4, "distanceMetric": "dot"}]}},
+              "title": {"type": "text", "text": {"analyser": "standard"}}}, "vectorFused"),
             ({"v": {"type": "vectorFlat", "vectorFlat": {"vectorSize": 8, "distanceMetric": "euclidean",
                     "quantizer": {"type": "product", "product": {"numCentroids": 16, "numSubVectors": 2}}}}}, "product"),
         ):
