@@ -1,13 +1,16 @@
 """IVF (inverted-file / clustered) vector index, in PyTorch with CUDA kernels.
 
-Port of ``semadb_tpu/index/ivf.py`` without the product quantizer (IVF-PQ)
-and without the two-level coarse quantizer. Layout as there: traversal state
-beside the exact-rerank state, all tensors on the index's device.
+Port of ``semadb_tpu/index/ivf.py`` without the product quantizer (IVF-PQ).
+Layout as there: traversal state beside the exact-rerank state, all tensors
+on the index's device.
 
   - ``vectors f32[cap, D]``  per-node full-precision rows: the source of
     truth for writes and refits, and what the exact rerank reads
   - ``centroids f32[C, D]``  the k-means coarse quantizer
-    (``vectorstore.kmeans.kmeans_fit_large``)
+    (``vectorstore.kmeans.kmeans_fit_large``); from ``TWO_LEVEL_MIN_C``
+    clusters the two-level one (``kmeans_fit_two_level``), whose children
+    keep this flat layout, with ``_sup_cents f32[supers, D]`` beside it for
+    the assignments of later writes
   - ``slabs [C, S, tdim]``   cluster members, zero in empty slots; f32, or
     bf16 past ``SLAB_BF16_BYTES``; stored in the corpus' top-``PROJ_DIM``
     principal subspace when D > PROJ_DIM
@@ -34,15 +37,20 @@ Where the port differs from the JAX package:
     search never scores a slot whose row is not written yet. A refit builds
     every new array first and binds them all at once under ``_state_lock``,
     which searches hold while they capture the arrays and enqueue their work
-    (on a CUDA device that is launch time only; the stream orders the rest);
+    (on a CUDA device that is launch time only; the stream orders the rest).
+    ``_sup_cents`` is bound there too, with the centroids it belongs to, and
+    the refit's own assignments are handed the new one (the JAX package
+    clears it when a refit starts and sets it when the fit ends);
   - probe selection and the overflow scan use exact ``topk`` where JAX uses
     ``approx_max_k`` (C ≥ 2^17, the chunked overflow scan), and the overflow
     scan is skipped when the host knows the pool holds no live row;
   - no donation, no grow-ahead, no shape bucketing (``_pad_dup``, query
     padding): PyTorch does not compile per shape;
-  - a product quantizer, and refits that would need C ≥ ``TWO_LEVEL_MIN_C``
-    clusters (corpora past ~2.2M points at the automatic cluster count),
-    raise ``NotImplementedError``;
+  - a write into a two-level index lands where a search for the point
+    itself looks: a row whose two-level candidates are not all among its
+    own default probes takes its first probes (``_within_own_probes``); the
+    JAX package writes it where its own search may not find it;
+  - a product quantizer raises ``NotImplementedError``;
   - the tuning values the JAX package reads from ``SEMADB_IVF_*``
     environment variables are constants here, at its defaults.
 """
@@ -63,7 +71,12 @@ from semadb_tpu_torch.ops.distance import pairwise_distance
 from semadb_tpu_torch.ops.kernels.ivf_rerank import ivf_exact_rerank
 from semadb_tpu_torch.ops.kernels.ivf_scan import ivf_probe_scan
 from semadb_tpu_torch.utils.grow import initial_capacity, next_capacity
-from semadb_tpu_torch.vectorstore.kmeans import kmeans_assign, kmeans_fit_large
+from semadb_tpu_torch.vectorstore.kmeans import (
+    kmeans_assign,
+    kmeans_assign_two_level,
+    kmeans_fit_large,
+    kmeans_fit_two_level,
+)
 from semadb_tpu_torch.vectorstore.store import host_tensor
 
 NIL = -1
@@ -75,6 +88,9 @@ RERANK_POOL = 64
 # Projected coarse scores carry JL distortion: the pool is deeper
 RERANK_POOL_PQ = 256
 PROJ_DIM = 128
+# Slabs past this many f32 bytes are stored in bf16. On the H100 the 10M x 128
+# cell (f32 slabs 12.9 GB) measured the same recall@10 on both types and K3
+# 19% faster on bf16 (PERF.md, the 10M cell), so the threshold stays the JAX value
 SLAB_BF16_BYTES = 2**32
 # Full [B, O] overflow distance matrix cap before the scan chunks it
 OVF_CHUNK_BYTES = 2**26
@@ -82,12 +98,15 @@ OVF_CHUNK_ROWS = 65536
 # Full [B, C] probe-selection matrix cap before chunking over C
 PROBE_CHUNK_BYTES = 2**30
 PROBE_CHUNK_C = 16384
+# Cluster counts from here on take the two-level coarse quantizer: a flat
+# fit and assignment score every row against every cluster
 TWO_LEVEL_MIN_C = 65537
+TWO_LEVEL_SUPERS = 512
 # Largest filter-member count served by the exact member scan; larger
 # filters probe FILTER_WIDEN times wider instead
 FILTER_EXACT_CAP = 262144
 FILTER_WIDEN = 4
-# Slab budget of _auto_slab (bf16 bytes)
+# Slab budget of _auto_slab (bf16 bytes); see its docstring
 SLAB_BYTES = 7 * 2**30
 RELOC_T = 8  # relocation candidates for a primary whose home cluster is full
 WRITE_CHUNK = 131072  # rows per upload + scatter of a large write
@@ -188,9 +207,14 @@ def _auto_slab(copies: int, n: int, Cn: int, tdim: int, current: int) -> int:
     slots for 20M placements — a third of the copies get dropped and
     primaries relocate far from home, capping recall ~0.96 at p=24. Sizing
     S to copies·n/Cn with 25% heavy-tail headroom (rounded up to 64, the
-    gather-friendly granule) keeps both placements resident. Bounded by a
-    ~7 GB bf16 slab budget (16 GB chip: vectors f32 + slabs + 1 GB query
-    transient must co-reside); never shrinks below the configured value."""
+    gather-friendly granule) keeps both placements resident. Bounded by the
+    ``SLAB_BYTES`` bf16 slab budget, 7 GiB, the JAX package's for a 16 GB
+    chip; never shrinks below the configured value. On the 80 GB H100 the
+    budget leaves room: the 10M x 128 cell peaked at 12.09 GiB with 11.30
+    GiB resident (PERF.md, the 10M cell). There need and cap are both 192 (7 GiB
+    over 131,072 x 128 x 2 B is 224, rounded down to 64), so at C = 131,072
+    the cap binds from ~10.07M points on. It stays at the JAX value until a
+    cell past that size measures what a deeper slab buys."""
     if n <= 0:
         return current
     need = int(np.ceil(copies * n / Cn * 1.25 / 64.0)) * 64
@@ -331,6 +355,7 @@ class IndexIVF:
         self._loc: dict[int, tuple] = {}  # node id -> ("s", c, slot) | ("o", j)
         self._loc2: dict[int, list] = {}  # node id -> [(c, slot), ...] copies
         self._n_at_fit = 0
+        self._sup_cents: Optional[torch.Tensor] = None  # the two-level super layer, else None
         self._sq_cache: dict = {}
         # Searches hold _state_lock while they capture the arrays and enqueue
         # their work; writers hold it around each in-place update and
@@ -342,6 +367,7 @@ class IndexIVF:
         self.capacity = initial_capacity(D * 4, 128)
         self.vectors = torch.zeros((self.capacity, D), dtype=torch.float32, device=dev)
         self.refit_seconds: dict = {}  # phase → seconds of the last refit
+        self.repaired_writes = 0  # written rows placed by their own probes (_within_own_probes)
 
     # -- internals ----------------------------------------------------------
     def _sq(self, arr: torch.Tensor) -> torch.Tensor:
@@ -391,12 +417,18 @@ class IndexIVF:
             self._ovf_free.extend(range(old, old + grow))
         return [self._ovf_free.pop() for _ in range(n)]
 
-    def _assign_top(self, cents, t, row_ids=None, rows=None) -> np.ndarray:
-        """Top-t nearest clusters as host ids. ``rows`` = explicit data
+    def _assign_top(self, cents, sup, t, row_ids=None, rows=None) -> np.ndarray:
+        """Top-t nearest clusters as host ids: over the children of the 4
+        nearest supers when ``sup`` (the super layer of ``cents``) is given
+        and C ≥ ``TWO_LEVEL_MIN_C``, flat otherwise. ``rows`` = explicit data
         matrix; ``row_ids`` = gather rows from ``self.vectors`` per block."""
-        if rows is not None:
-            return kmeans_assign(rows, cents, t).cpu().numpy()
-        return kmeans_assign(self.vectors, cents, t, row_ids=row_ids).cpu().numpy()
+        data = rows if rows is not None else self.vectors
+        ids = None if rows is not None else row_ids
+        if sup is not None and cents.shape[0] >= TWO_LEVEL_MIN_C:
+            # n_sup = 4: with 2, 6.5% of assignments miss the nearest
+            # cluster (the JAX package's measurement at 64k x 64d, C = 1024)
+            return kmeans_assign_two_level(data, sup, cents, t, row_ids=ids, n_sup=4).cpu().numpy()
+        return kmeans_assign(data, cents, t, row_ids=ids).cpu().numpy()
 
     def _should_refit(self) -> bool:
         n = len(self._loc)
@@ -433,11 +465,6 @@ class IndexIVF:
         else:
             n_pad = -(-n // 4096) * 4096
         Cn = min(Cn, n_pad)
-        if Cn >= TWO_LEVEL_MIN_C:
-            raise NotImplementedError(
-                f"a refit to {Cn} clusters needs the two-level coarse quantizer "
-                f"(numClusters >= {TWO_LEVEL_MIN_C}), which is not ported to semadb_tpu_torch yet"
-            )
         S = self.slab
         if not self.params.slab_size:
             S = _auto_slab(min(self.params.assign_copies, Cn), n, Cn, self.tdim, self.slab)
@@ -447,8 +474,16 @@ class IndexIVF:
         # Past 256 MB the [n_pad, D] gather copy is skipped: rows are
         # gathered per block inside k-means and the assignment instead
         big = n_pad * D * 4 >= 2**28
+        sup = None
         with self._phase("kmeans_s"):
-            if big:
+            if Cn >= TWO_LEVEL_MIN_C:
+                fit_data = None if big else self.vectors[pad_ids_dev.long()]
+                cents, lab, sup = kmeans_fit_two_level(
+                    self.vectors if big else fit_data, Cn, iters=KMEANS_ITERS,
+                    row_ids=pad_ids_dev if big else None, supers=min(TWO_LEVEL_SUPERS, Cn),
+                    phase=lambda name: self._phase("kmeans_" + name),
+                )
+            elif big:
                 fit_data = None
                 cents, lab = kmeans_fit_large(self.vectors, Cn, iters=KMEANS_ITERS, row_ids=pad_ids_dev)
             else:
@@ -493,13 +528,13 @@ class IndexIVF:
         with self._phase("assign_s"):
             if len(spill) and copies > 1:
                 topt = (
-                    self._assign_top(cents, t_all, row_ids=pad_ids_dev)
-                    if big else self._assign_top(cents, t_all, rows=fit_data)
+                    self._assign_top(cents, sup, t_all, row_ids=pad_ids_dev)
+                    if big else self._assign_top(cents, sup, t_all, rows=fit_data)
                 )[:n]
                 topt_sp = topt[spill]
             elif len(spill):
                 topt_sp = self._assign_top(
-                    cents, RELOC_T, rows=self.vectors[_long(ids[spill]).to(self.device)]
+                    cents, sup, RELOC_T, rows=self.vectors[_long(ids[spill]).to(self.device)]
                 )
             else:
                 topt_sp = np.empty((0, t_all), np.int64)
@@ -526,8 +561,8 @@ class IndexIVF:
             if topt is None:
                 with self._phase("assign_s"):
                     topt = (
-                        self._assign_top(cents, t_all, row_ids=pad_ids_dev)
-                        if big else self._assign_top(cents, t_all, rows=fit_data)
+                        self._assign_top(cents, sup, t_all, row_ids=pad_ids_dev)
+                        if big else self._assign_top(cents, sup, t_all, rows=fit_data)
                     )[:n]
             with self._phase("pack_s"):
                 for col in range(1, copies):
@@ -560,7 +595,7 @@ class IndexIVF:
                 sp_v = self.vectors[_long(ids[spill]).to(self.device)] if big else data[_long(spill).to(self.device)]
                 ovf_vecs[: len(spill)] = sp_v if proj is None else sp_v @ proj
         with self._state_lock:
-            self.centroids = cents
+            self.centroids, self._sup_cents = cents, sup
             self._proj = proj
             self.slab = S
             self.slabs, self.slab_sq, self.slab_ids = slabs, slab_sq, slab_ids_dev
@@ -726,6 +761,29 @@ class IndexIVF:
             self._refit()
         self._sq_cache = {}
 
+    def _within_own_probes(self, topt: np.ndarray, ids_dev: torch.Tensor) -> np.ndarray:
+        """Candidate clusters of written rows that a search for the row itself
+        probes. The two-level assignment looks at the children of 4 supers,
+        while a search probes the nearest clusters of all; a row whose
+        candidates are not all among its own default probes would be written
+        where its own search cannot find it (the JAX package places it there
+        all the same). Such a row takes its first probes instead; every other
+        row keeps the two-level candidates."""
+        t = topt.shape[1]
+        p = max(self._num_probes(), t)
+        with self._state_lock:
+            cent, cent_sq = self._probe_centroids()
+        own = np.empty((len(topt), p), np.int64)
+        for lo in range(0, len(topt), 4096):
+            rows = self.vectors[ids_dev[lo : lo + 4096].long()]
+            qp = rows if self._proj is None else rows @ self._proj
+            own[lo : lo + 4096] = _select_probes(qp, cent, cent_sq, p).cpu().numpy()
+        inside = (topt[:, :, None] == own[:, None, :]).any(2).all(1)
+        topt = topt.copy()
+        topt[~inside] = own[~inside, :t]
+        self.repaired_writes += int((~inside).sum())
+        return topt
+
     def _place_fitted(self, ids_np: np.ndarray) -> None:
         """Vectorised placement of already-written ``vectors`` rows into
         slabs/overflow: per-column greedy packing (primaries with spill
@@ -736,7 +794,9 @@ class IndexIVF:
         S = self.slab
         copies = min(self.params.assign_copies, Cn)
         t_ins = min(max(copies, 2), Cn)
-        topt = self._assign_top(self.centroids, t_ins, row_ids=ids_dev)[:n]
+        topt = self._assign_top(self.centroids, self._sup_cents, t_ins, row_ids=ids_dev)[:n]
+        if self._sup_cents is not None and Cn >= TWO_LEVEL_MIN_C:
+            topt = self._within_own_probes(topt, ids_dev)
         fill = self._fill
         placed_cols = []  # (rows (positions into ids_np), clusters, slots, is_primary)
         pc = np.full(n, -1, np.int64)
@@ -830,9 +890,7 @@ class IndexIVF:
                 return self._member_exact(q, k, fm_np)
         with self._state_lock:
             cache = self._sq_cache
-            if "cent" not in cache:
-                cent_p = self.centroids @ self._proj if self._proj is not None else self.centroids
-                cache["cent_p"], cache["cent"] = cent_p, self._sq(cent_p)
+            cent_p, cent_sq = self._probe_centroids()
             fm = None
             if fm_np is not None:
                 # Broad filter: probe wider instead
@@ -848,10 +906,19 @@ class IndexIVF:
             if key not in cache:
                 cache[key] = self._sq(ov)
             return _ivf_query(
-                cache["cent_p"], cache["cent"], self.slabs, self.slab_sq, self.slab_ids,
+                cent_p, cent_sq, self.slabs, self.slab_sq, self.slab_ids,
                 ov, cache[key], ov_ids, q, self.vectors, fm, self._proj, p, k, self.metric,
                 dedup=self.params.assign_copies > 1, keep=keep,
             )
+
+    def _probe_centroids(self):
+        """(centroids in the slab space, their squared norms), cached until
+        the next write or refit; the caller holds ``_state_lock``."""
+        cache = self._sq_cache
+        if "cent" not in cache:
+            cent_p = self.centroids @ self._proj if self._proj is not None else self.centroids
+            cache["cent_p"], cache["cent"] = cent_p, self._sq(cent_p)
+        return cache["cent_p"], cache["cent"]
 
     def _member_exact(self, q: torch.Tensor, k: int, fm_np: np.ndarray):
         """Exact top-k over the live filter members only (member-gather
@@ -908,6 +975,8 @@ class IndexIVF:
         }
         if self._proj is not None:
             out["proj"] = self._proj
+        if self._sup_cents is not None:
+            out["sup_cents"] = self._sup_cents
         return out
 
     def snapshot_row_bounds(self) -> dict:
@@ -920,9 +989,8 @@ class IndexIVF:
         """Load what either package's ``to_arrays`` (or a snapshot) holds;
         slabs, norms and overflow rows are rebuilt from ``vectors`` with the
         gather a refit uses, unless the arrays carry them."""
-        for key, what in (("pq_codebook", "IVF-PQ codes"), ("sup_cents", "the two-level coarse quantizer")):
-            if key in arrays:
-                raise NotImplementedError(f"these IVF arrays hold {what}, which semadb_tpu_torch does not port yet")
+        if "pq_codebook" in arrays:
+            raise NotImplementedError("these IVF arrays hold IVF-PQ codes, which semadb_tpu_torch does not port yet")
         idx = cls(params, device)
         dev = idx.device
         D = params.vector_size
@@ -937,6 +1005,8 @@ class IndexIVF:
         idx.capacity = cap
         idx._max_seen = max(rows - 1, 0)
         idx._n_at_fit = int(np.asarray(arrays["n_at_fit"]).reshape(-1)[0])
+        if "sup_cents" in arrays:
+            idx._sup_cents = host_tensor(arrays["sup_cents"], np.float32).to(dev)
         idx.slab = int(idx.slab_ids.shape[1])
         if "proj" in arrays:
             idx._proj = host_tensor(arrays["proj"], np.float32).to(dev)

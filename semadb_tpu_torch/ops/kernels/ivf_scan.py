@@ -102,6 +102,27 @@ def batch_chunk(b: int, p: int, s: int) -> int:
     return max(1, min(b, SCRATCH_BYTES // max(p * s * 4, 1)))
 
 
+def random_operands(c: int, s: int, r: int, seed: int, device):
+    """A slab set for checking the kernel at a shape, made on ``device`` from
+    ``seed`` in blocks of 8,192 clusters: bf16[c, s, r] normal rows with 30%
+    NIL slots (zero rows), the norms of the f32 rows, distinct ids from 2 on,
+    and a u8 mask that admits about half the ids. Returns (the generator,
+    slabs, slab_sq, slab_ids, mask); the generator goes on to draw queries."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    slabs = torch.empty((c, s, r), dtype=torch.bfloat16, device=device)
+    slab_sq = torch.empty((c, s), dtype=torch.float32, device=device)
+    ids = (torch.randperm(c * s, generator=gen, device=device).reshape(c, s) + 2).to(torch.int32)
+    for c0 in range(0, c, 8192):
+        rows = torch.randn((min(8192, c - c0), s, r), generator=gen, device=device)
+        nil = torch.rand(rows.shape[:2], generator=gen, device=device) < 0.3
+        rows[nil] = 0.0
+        ids[c0 : c0 + rows.shape[0]][nil] = NIL
+        slabs[c0 : c0 + rows.shape[0]] = rows.to(torch.bfloat16)
+        slab_sq[c0 : c0 + rows.shape[0]] = (rows * rows).sum(-1)
+    mask = (torch.rand(c * s + 2, generator=gen, device=device) < 0.5).to(torch.uint8)
+    return gen, slabs, slab_sq, ids, mask
+
+
 def ivf_probe_scan(
     qp: torch.Tensor, probe: torch.Tensor, slabs: torch.Tensor, slab_sq: torch.Tensor,
     slab_ids: torch.Tensor, mask: Optional[torch.Tensor], rr: int,

@@ -3,9 +3,11 @@
 Copies of ``semadb_tpu/tools/datasets.py``'s host generators and exact
 ground truth (``AnnDataset``, ``embedding_like``, ``compute_ground_truth``;
 numpy, so one seed gives bit-identical data in both packages), plus
-:func:`compute_ground_truth_device` in torch. ``embedding_like_device`` is
-not ported: it draws from JAX's generator, which torch cannot reproduce, and
-the bench's default size uses the host generator.
+:func:`compute_ground_truth_device` and :func:`embedding_like_device` in
+torch. The device generator draws the host generator's mixture from a
+``torch.Generator`` on the device: JAX's random numbers cannot be
+reproduced, so its data match the JAX package's in distribution, not in
+bits.
 """
 
 from __future__ import annotations
@@ -17,6 +19,14 @@ import numpy as np
 import torch
 
 from semadb_tpu_torch.ops.distance import pairwise_distance
+
+# Rows the device generator makes at a time: its noise, ``z @ emb.T`` and
+# their sum never exist at full size (each would be 5.12 GB at 10M x 128)
+GEN_BLOCK_ROWS = 1 << 20
+# Floats in one [query chunk, corpus block] distance block of the device
+# ground truth (1 GiB)
+GT_BLOCK_FLOATS = 1 << 28
+
 
 @dataclass
 class AnnDataset:
@@ -111,20 +121,84 @@ def compute_ground_truth(ds: AnnDataset, k: int, block: int = 256) -> np.ndarray
 def compute_ground_truth_device(
     ds: AnnDataset, k: int, device, qchunk: int = 0
 ) -> np.ndarray:
-    """Exact top-k train indices per test query, computed on ``device``: a
-    chunked [qchunk, N] f32 scan (``torch.matmul`` in full f32, TF32 off)
-    plus ``torch.topk``. At 1M x 128 and 32,768 queries the host f64
-    version takes hours on one core; f32's relative error (~1e-6) is far
-    below any neighbour margin, and ann-benchmarks' ground truth is f32 too.
-    """
+    """Exact top-k train indices per test query, computed on ``device``:
+    [qchunk, corpus block] f32 distance blocks of ``GT_BLOCK_FLOATS``
+    (``torch.matmul`` in full f32, TF32 off), each block's ``torch.topk``,
+    and a merge of the blocks' candidates per query chunk. ``ds.train`` / ``ds.test`` may be numpy arrays or tensors
+    (a tensor on ``device`` is used where it lies). At 1M x 128 and 32,768
+    queries the host f64 version takes hours on one core; f32's relative
+    error (~1e-6) is far below any neighbour margin, and ann-benchmarks'
+    ground truth is f32 too. Blocking the corpus too keeps each query chunk
+    wide at any N: the corpus is read once per chunk of queries."""
     device = torch.device(device)
-    corpus = torch.from_numpy(np.ascontiguousarray(ds.train, np.float32)).to(device)
+    corpus = _as_tensor(ds.train, device)
+    test = _as_tensor(ds.test, device)
+    n = corpus.shape[0]
     if not qchunk:
-        # Keep the [qchunk, N] distance matrix and topk's workspace ~1.5 GB.
-        qchunk = int(min(512, max(64, 2**27 // max(len(ds.train), 1))))
+        qchunk = min(len(test), 4096)
+    nchunk = max(GT_BLOCK_FLOATS // qchunk, k)
     outs = []
-    for i in range(0, len(ds.test), qchunk):
-        q = torch.from_numpy(np.ascontiguousarray(ds.test[i : i + qchunk], np.float32)).to(device)
-        d = pairwise_distance(q, corpus, ds.metric)
-        outs.append(torch.topk(d, k, dim=1, largest=False, sorted=True).indices.to(torch.int32).cpu())
+    for i in range(0, len(test), qchunk):
+        q = test[i : i + qchunk]
+        best_d = best_i = None
+        for j in range(0, n, nchunk):
+            d = pairwise_distance(q, corpus[j : j + nchunk], ds.metric)
+            v, pos = torch.topk(d, min(k, d.shape[1]), dim=1, largest=False, sorted=True)
+            if best_d is None:
+                best_d, best_i = v, pos + j
+            else:
+                v, sel = torch.topk(torch.cat([best_d, v], 1), k, dim=1, largest=False, sorted=True)
+                best_i = torch.gather(torch.cat([best_i, pos + j], 1), 1, sel)
+                best_d = v
+        outs.append(best_i.to(torch.int32).cpu())
     return torch.cat(outs).numpy()
+
+
+def _as_tensor(a, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device, torch.float32)
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+
+def embedding_like_device(
+    n: int,
+    dim: int,
+    n_queries: int,
+    latent: int = 64,
+    cluster_size: int = 100,
+    spread: float = 0.9,
+    ambient: float = 0.25,
+    metric: str = "euclidean",
+    seed: int = 42,
+    device="cuda",
+) -> AnnDataset:
+    """:func:`embedding_like`, generated on ``device`` (JAX
+    ``embedding_like_device``): the same mixture in an r-dim latent space
+    (``n // cluster_size`` centres, within-cluster ``spread``), the same
+    orthonormal D x r embedding, ambient noise and cosine normalisation,
+    drawn from a ``torch.Generator`` on ``device`` seeded by ``seed``. Train
+    and test come back as tensors on ``device``. Rows are made
+    ``GEN_BLOCK_ROWS`` at a time into one preallocated tensor."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    latent = min(latent, dim)  # same clamp as the host generator
+    n_clusters = max(n // cluster_size, 2)
+    centers = torch.randn((n_clusters, latent), generator=gen, device=device)
+    emb, _ = torch.linalg.qr(torch.randn((dim, latent), generator=gen, device=device))  # [D, r]
+
+    def sample(m: int) -> torch.Tensor:
+        out = torch.empty((m, dim), dtype=torch.float32, device=device)
+        for lo in range(0, m, GEN_BLOCK_ROWS):
+            rows = min(GEN_BLOCK_ROWS, m - lo)
+            assign = torch.randint(0, n_clusters, (rows,), generator=gen, device=device)
+            z = centers[assign] + spread * torch.randn((rows, latent), generator=gen, device=device)
+            noise = torch.randn((rows, dim), generator=gen, device=device)
+            torch.addmm(noise, z, emb.T, beta=ambient, out=out[lo : lo + rows])
+            if metric == "cosine":
+                blk = out[lo : lo + rows]
+                blk /= torch.linalg.vector_norm(blk, dim=1, keepdim=True).clamp(min=1e-12)
+        return out
+
+    train = sample(n)
+    test = sample(n_queries)
+    return AnnDataset(name=f"embedding-like-dev-{n}x{dim}", metric=metric, train=train, test=test)

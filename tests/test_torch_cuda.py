@@ -253,6 +253,59 @@ def test_ivf_probe_scan_matches_plain(cuda, b, p, s, r, rr, bf16, masked, layout
     _pools_agree(want, got, dist_of, atol)
 
 
+# K3 at the 10M cell's cluster count (131,072 clusters: 32 tiles of the
+# offsets look-back scan), S = 192, r = 128, bf16 slabs
+BIG_C, BIG_S, BIG_R, BIG_RR = 131_072, 192, 128, 64
+
+
+@pytest.fixture(scope="module")
+def big_slabs():
+    """One slab set at the 10M cell's widths, made on the card from a seed
+    (30% NIL slots, norms of the f32 rows), and a mask over half the ids."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    _, slabs, sq, ids, mask = ivf_scan.random_operands(BIG_C, BIG_S, BIG_R, 131072, torch.device("cuda"))
+    ids_h = ids.cpu().numpy().reshape(-1)
+    order = np.argsort(ids_h, kind="stable")
+    yield slabs, sq, ids, mask, order, ids_h[order]
+    del slabs, sq, ids, mask
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("p", [24, 96])
+@pytest.mark.parametrize("b", [1, 4096])
+def test_ivf_probe_scan_at_131072_clusters(big_slabs, b, p, masked):
+    slabs, sq, ids, mask, order, sorted_ids = big_slabs
+    gen = torch.Generator(device="cuda").manual_seed(b + p + masked)
+    qp = torch.randn((b, BIG_R), generator=gen, device="cuda")
+    probe = torch.topk(torch.rand((b, BIG_C), generator=gen, device="cuda"), p, dim=1).indices.to(torch.int32)
+    ops = (qp, probe.contiguous(), slabs, sq, ids, mask if masked else None, BIG_RR)
+    got = ivf_scan.ivf_probe_scan(*ops)
+    torch.cuda.synchronize()
+    want = ivf_scan.ivf_probe_scan_plain(*ops)
+    flat, flat_sq = slabs.reshape(-1, BIG_R), sq.reshape(-1)
+    xmax = max(float(slabs[c0 : c0 + 8192].float().norm(dim=-1).max()) for c0 in range(0, BIG_C, 8192))
+    atol = (IVF_RTOL * (xmax * xmax + 2.0 * xmax * qp.double().norm(dim=1))).cpu()
+
+    def dist_of(bb, i):
+        if i == -1:
+            return float("inf")
+        cell = int(order[np.searchsorted(sorted_ids, i)])
+        return float(flat_sq[cell]) - 2.0 * float(flat[cell].double() @ qp[bb].double())
+
+    wd, wi = (t.cpu() for t in want)
+    gd, gi = (t.cpu() for t in got)
+    assert gd.shape == wd.shape == (b, BIG_RR)
+    # Rows with the same ids and distances within atol need no lookups
+    differ = ((gi != wi) | ((gd - wd).abs().nan_to_num(0.0) > atol[:, None])).any(1).nonzero()[:, 0].tolist()
+    for bb in differ:
+        errs = pool_errors(wd[bb].tolist(), wi[bb].tolist(), gd[bb].tolist(), gi[bb].tolist(),
+                           lambda i, bb=bb: dist_of(bb, i), float(atol[bb]))
+        assert not errs, (bb, errs)
+
+
 # (B, D, k, rr, metric, dedup, layout). Routes: bulk copies at D % 4 == 0
 # on the 16-byte grid (D = 4 through 4096; stages of 64, 32, 2 and 1 rows),
 # element loads at D = 3 and 100 and off the grid ("offgrid": the matrix a

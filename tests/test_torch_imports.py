@@ -8,7 +8,8 @@ modules the port keeps its own copies of (``models/``, ``store/``,
 ``csrc/kvstore.cpp``) stay the same as the JAX
 package's originals, apart from their imports and the store's native build;
 so do the definitions it copies from ``utils/pipeline.py`` (all but the
-readback) and ``tools/datasets.py`` (the host generator and ground truth).
+readback), ``tools/datasets.py`` (the host generator and ground truth) and
+``vectorstore/kmeans.py`` (``_group_rows``, host numpy).
 """
 
 import ast
@@ -155,6 +156,7 @@ PARTIAL_COPIES = [
     # original maps jax.tree over np.asarray
     ("utils/pipeline.py", None, ("_materialise",)),
     ("tools/datasets.py", ("AnnDataset", "embedding_like", "compute_ground_truth"), ()),
+    ("vectorstore/kmeans.py", ("_group_rows",), ()),
 ]
 
 

@@ -578,20 +578,25 @@ def test_product_quantizer_on_ivf_is_refused():
     check_supported(port_models.IndexSchema.from_dict(IVF_SCHEMA))
 
 
-def test_ground_truth_on_device_matches_jax_and_host():
+def test_ground_truth_on_device_matches_jax_and_host(monkeypatch):
     """The torch ground truth (f32 on the given device) against the JAX
     package's device version and the f64 host one; ties by the tie rule."""
     from semadb_tpu.tools import datasets as jax_datasets
-    from semadb_tpu_torch.tools.datasets import compute_ground_truth_device
+    from semadb_tpu_torch.tools import datasets as port_datasets
 
     ds = embedding_like(3000, 24, 40, latent=16, seed=3, spread=0.5)
-    got = compute_ground_truth_device(ds, 10, CPU, qchunk=16)
-    for want in (jax_datasets.compute_ground_truth_device(ds, 10), compute_ground_truth(ds, 10)):
-        for b in range(len(ds.test)):
-            d = ((ds.train.astype(np.float64) - ds.test[b]) ** 2).sum(-1)
-            errs = tie_rule_errors(d[want[b]], want[b].tolist(), d[got[b]], got[b].tolist(),
-                                   lambda i: d[i], atol=RTOL * float(d.max()))
-            assert errs == [], errs
+    wants = (jax_datasets.compute_ground_truth_device(ds, 10), compute_ground_truth(ds, 10))
+    gots = [port_datasets.compute_ground_truth_device(ds, 10, CPU, qchunk=16)]  # one corpus block
+    # blocks of 700 rows merged per query chunk
+    monkeypatch.setattr(port_datasets, "GT_BLOCK_FLOATS", 16 * 700)
+    gots.append(port_datasets.compute_ground_truth_device(ds, 10, CPU, qchunk=16))
+    for got in gots:
+        for want in wants:
+            for b in range(len(ds.test)):
+                d = ((ds.train.astype(np.float64) - ds.test[b]) ** 2).sum(-1)
+                errs = tie_rule_errors(d[want[b]], want[b].tolist(), d[got[b]], got[b].tolist(),
+                                       lambda i: d[i], atol=RTOL * float(d.max()))
+                assert errs == [], errs
 
 
 def test_annbench_runs_the_ivf_engine_on_cpu(capsys):
@@ -608,10 +613,3 @@ def test_annbench_runs_the_ivf_engine_on_cpu(capsys):
     assert set(out["build_split_s"]) >= {"upload_s", "kmeans_s", "pack_s", "slab_build_s"}
     with pytest.raises(NotImplementedError, match="Vamana"):
         annbench.AnnBench(dim=16, device="cpu", engine="vamana")
-
-
-def test_two_level_refit_is_refused(monkeypatch):
-    monkeypatch.setattr(port_ivf, "TWO_LEVEL_MIN_C", 64)
-    idx = _port(num_clusters=128)
-    with pytest.raises(NotImplementedError, match="two-level"):
-        idx.insert_update_delete(zip(range(2, 1002), _clustered(np.random.default_rng(12), 1000)))
