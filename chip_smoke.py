@@ -10,10 +10,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Environment and build: the card (``nvidia-smi``), torch and CUDA versions,
    the codecs, then K1 (``semadb_tpu_torch/csrc/hamming.cu``), K2
-   (``csrc/gather.cu``), K3 (``csrc/ivf_scan.cu``) and K4
-   (``csrc/ivf_rerank.cu``) built with ``nvcc`` and the key-value store
-   (``csrc/kvstore.cpp``) with ``g++`` from the checkout's sources, all five
-   at once, timed.
+   (``csrc/gather.cu``), K3 (``csrc/ivf_scan.cu``), K4
+   (``csrc/ivf_rerank.cu``) and K9 (``csrc/ivf_pq_scan.cu``) built with
+   ``nvcc`` and the key-value store (``csrc/kvstore.cpp``) with ``g++`` from
+   the checkout's sources, all six at once, timed.
 2. Kernel: K1 against its plain PyTorch version on the card, hamming and
    jaccard, on both of its routes (tensor cores and CUDA cores), at B in
    {1, 2, 7, 8, 15, 16, 17, 33, 64, 1000} (both sides of the route
@@ -64,7 +64,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the card: K3 at B in {1, 7, 64, 4096}, p in {1, 5, 24, 96}, S in {64, 128, 192}, r in {3,
    100, 128}, rr in {20, 64, 256}, f32 and bf16 slabs, 30% NIL slots, with
    and without a filter mask (every value of each parameter, in 20
-   combinations), the bench cell's shape, and the layouts a batch meets:
+   combinations), the bench cell's shape, the fused cell's (S = 256, r = 194,
+   bf16), and the layouts a batch meets:
    every query on the same 24 probes (B = 4096, the load imbalance), ids
    stored in two clusters, live prefixes with holes (a refit's packing, then
    deletes), and a scratch budget patched small so that B runs in chunks;
@@ -74,7 +75,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    {4, 128, 1536, 4096}; element loads at D = 3 and on a base off the
    16-byte grid) across k in {1, 10, 32, 33, 100}, rr in {20, 64, 256,
    2048} and B in {1, 7, 4096}, pools with every id 2-3 times and a pool
-   that is all empty (33 more). K3 also at the 10M cell's widths over one
+   that is all empty (33 more), and the fused cell's D = 194 (the element
+   route). K9 (``csrc/ivf_pq_scan.cu``, the ADC scan of PQ codes): its probed
+   entry at B in {1, 7, 64, 4096}, p in {1, 24, 96}, S in {64, 128, 256}, M
+   in {2, 4, 8, 16, 128}, K in {16, 256}, rr in {20, 256, 2048}, 30% NIL
+   slots, with and without a mask (every value, in 14 combinations, the
+   IVF-PQ cell's shape among them), scores within 1e-5 of M · max|table|,
+   pools by the tie rule; its dense entry at N in {1, 4096, 100,003} with
+   masked rows, the same tolerance. K3 also at the 10M cell's widths over one
    slab set made on the card: C = 131,072 (32 tiles of the offsets scan),
    S = 192, r = 128, bf16, 30% NIL slots, at B in {1, 4096} x p in {24, 96},
    with and without a mask. Distances must agree within 1e-5 of the
@@ -90,7 +98,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the cell's own operands (4,096 queries): checked against their plain
    versions, timed (torch.profiler, mean of 20 calls; K3's time is every
    device event of its calls, its five kernels and its memset, and each must
-   have recorded one launch a call), the plain versions timed, and set
+   have recorded one launch a call, or, where the profiler lost launches
+   (P2), the window's time must lie within 75-100% of a call's CUDA-event
+   time; the same holds for K3 at the 10M and fused cells), the plain
+   versions timed, and set
    against their byte bounds; K3 also at B from 1 to 4,096 (the cell's first
    B queries), K4 also at B = 1, on the device and as a call with its host
    work. Then K4 at the projected traversal's shape (D = 1536, rr = 256,
@@ -142,13 +153,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
    placement must go through the two-level assignment without a refit, and
    every new point must come back as its own nearest neighbour; the
    assignment's and the write repair's seconds and the rows the repair
-   moved are printed. K3's times in this phase are held to a call's
-   CUDA-event time, since the profiler loses some of its launches here (P2).
+   moved are printed.
+
+11. The IVF-PQ cell: ``BENCH_MODE=ivfpq python bench.py`` on the port,
+   ``annbench.main(["--quantizer", "product"])``: phase 8's corpus and
+   engine with a product quantizer of 8 subvectors x 256 centroids fit at
+   10,000 points. Recall@10 >= 0.95; K9 and K4 must have launched and K3 not
+   (the f32 slabs are placeholders); the build's split with the PQ fit and
+   encode, QPS and one batch under torch.profiler. Then K9 (and K4) on the
+   cell's own operands: checked, timed, their byte bounds; K9 at B = 1, and
+   its dense entry at the batch's tables over 4,096 rows of the cell's own
+   codes (the overflow pool's floor; the cell's pool itself is empty).
+12. The fused cell: ``BENCH_MODE=fused python bench.py`` on the port,
+   ``annbench.main(["--fused"])``: 1,000,000 points of two views (128 and
+   64, ``embedding_like_views(seed=42)``), euclidean, weights 0.7 and 0.3,
+   assignCopies 4, 32,768 queries in batches of 4,096. The engine must take
+   the shapes the code predicts (194 columns, no projection, S = 256, bf16
+   slabs, K4's element route); recall@10 against the exact combined-score
+   ground truth >= 0.97; K3 and K4 must have launched. Then K3 and K4 on the
+   cell's operands, checked and timed.
+13. HTTP v2 with a product quantizer and a fused property: one collection
+   (one shard) with a 128-d ``vectorIVF`` and a ``vectorFlat``, each with a
+   product quantizer (8 x 256, fit at 10,000 points), and a ``vectorFused``
+   property (128 + 64), 20,000 points from ``embedding_like_views``.
+   Ten searches of each kind over HTTP: IVF-PQ and fused results against
+   numpy's exact search (recall@10 >= 0.9, every returned distance exact
+   within 1e-4 relative), flat PQ against the ADC distances numpy computes
+   from the shard's own codes and codebooks (the tie rule, within 1e-4
+   relative). K9's two entries, K3 and K4 must have launched; K9's dense
+   entry is timed at the flat index's shape.
 
 Each kernel's bound is its bytes (each input read once, each output
 written once; for K2 each distinct row once; for K3 each distinct probed
-cluster once, for K4 each distinct live pool row once) over 3.35 TB/s, from
-this run's inputs. K2 does no arithmetic. K1's work is bit operations, and the
+cluster once, for K4 each distinct live pool row once; for K9 each query's
+table once, each distinct probed cluster's ids once and the codes of its
+live slots once) over 3.35 TB/s, from this run's inputs. K2 does no arithmetic. K1's work is bit operations, and the
 card's data sheet gives no rate for the tensor cores' single-bit MMA, so
 no operations term can be a least time for it; the term at the int8 rate
 (2 B N 32W / 1.979e15 s) is printed beside the bound for information.
@@ -189,8 +228,8 @@ INT8_OPS_PER_S = 1.979e15  # H100 SXM tensor cores, int8 dense
 FLUSH_BYTES = 128 << 20  # written, and as much read, between L2-cold calls
 PROFILER_WINDOWS = 3  # windows a time may take before a lost window fails the run
 # Least share of a K3 call's CUDA-event time (host launch work included) that
-# its profiler time may read where the profiler lost launches; the 10M cell
-# read 86.8% on the H100
+# its profiler time may read at a cell; the 10M cell read 86.8-90.2% on the
+# H100
 K3_EVENT_SHARE = 0.75
 K1_KERNEL = "bit_distance_kernel"  # in the names of both of K1's routes
 
@@ -222,8 +261,8 @@ def phase_environment(torch) -> dict:
 
 
 def phase_build():
-    """Build K1-K4 and the key-value store at once, one compiler each."""
-    from semadb_tpu_torch.ops.kernels import gather, hamming, ivf_rerank, ivf_scan
+    """Build K1-K4, K9 and the key-value store at once, one compiler each."""
+    from semadb_tpu_torch.ops.kernels import gather, hamming, ivf_pq_scan, ivf_rerank, ivf_scan
     from semadb_tpu_torch.store import native
     from semadb_tpu_torch.utils.build import BUILD_DIR
 
@@ -233,7 +272,7 @@ def phase_build():
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    kernels = (("K1", hamming), ("K2", gather), ("K3", ivf_scan), ("K4", ivf_rerank))
+    kernels = (("K1", hamming), ("K2", gather), ("K3", ivf_scan), ("K4", ivf_rerank), ("K9", ivf_pq_scan))
     with ThreadPoolExecutor(len(kernels) + 1) as pool:
         jobs = {name: pool.submit(timed, mod._library) for name, mod in kernels}
         jobs["kvstore"] = pool.submit(timed, native.load_library)
@@ -248,7 +287,7 @@ def phase_build():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
     log(f"[build] kvstore {native.SOURCE}: loaded in {took['kvstore']:.2f} s")
-    return hamming, gather, ivf_scan, ivf_rerank
+    return hamming, gather, ivf_scan, ivf_rerank, ivf_pq_scan
 
 
 def _check_k1(torch, hamming, q, x, what: str) -> float:
@@ -637,6 +676,37 @@ LIBRARY_NONE = ("none: no single PyTorch call gathers probed slabs and keeps a t
                 "(index_select + bmm + topk are three calls and materialise [B, p*S])")
 LIBRARY_NONE_K4 = ("none: no single PyTorch call gathers pool rows and takes an exact top-k "
                    "(index_select + bmm + topk are three calls)")
+LIBRARY_NONE_K9 = ("none: no single PyTorch call looks u8 codes up in per-query tables and keeps a top-rr "
+                   "(take_along_dim + sum + topk are three calls and materialise [B, p*S, M])")
+LIBRARY_NONE_K9_DENSE = ("none: no single PyTorch call sums the per-query table entries u8 codes select "
+                         "(take_along_dim + sum are two calls and materialise [B, N, M])")
+# K9's probed entry: (B, p, S, M, K, rr, mask), every value of each parameter;
+# the last two are the IVF-PQ cell's shape
+K9_CASES = [
+    (1, 1, 64, 2, 16, 20, False), (1, 24, 256, 128, 256, 2048, True), (1, 96, 128, 8, 256, 256, False),
+    (7, 1, 128, 4, 256, 20, True), (7, 24, 64, 16, 16, 256, False), (7, 96, 256, 128, 16, 2048, True),
+    (64, 1, 256, 8, 16, 2048, False), (64, 24, 128, 2, 256, 20, True), (64, 96, 64, 16, 256, 256, True),
+    (4096, 1, 64, 4, 16, 256, False), (4096, 24, 256, 16, 256, 20, True), (4096, 96, 128, 4, 16, 2048, False),
+    (4096, 24, 128, 8, 256, 256, False), (4096, 24, 128, 8, 256, 256, True),
+]
+# K9's dense entry: (B, N, M, K, mask)
+K9_DENSE_CASES = [
+    (1, 1, 8, 256, False), (3, 1, 2, 16, True), (64, 100_003, 8, 256, True), (7, 100_003, 128, 256, True),
+    (4096, 4096, 8, 256, True), (1, 100_003, 16, 16, False),
+]
+# Rows of K9's dense entry timed at the IVF-PQ cell's batch: the overflow
+# pool's floor from 2^17 points (index/ivf.py)
+K9_DENSE_ROWS = 4096
+PQ_CELL_ARGV = ("--quantizer", "product")
+PQ_CELL_RECALL = 0.95
+FUSED_CELL_ARGV = ("--fused",)
+FUSED_CELL_RECALL = 0.97
+# The fused cell's shapes, as the code predicts them: 128 + 64 + 2 norm
+# columns, no projection, S = 256 (copies 4), bf16 slabs
+FUSED_CELL_SHAPE = {"aug_dim": 194, "slab": 256, "slab_dtype": "bfloat16", "projected": False}
+HTTP_PQ_POINTS = 20_000
+HTTP_PQ_RECALL = 0.9
+HTTP_VIEWS = (128, 64)
 
 
 def k3_cases():
@@ -651,6 +721,8 @@ def k3_cases():
         cases.append((b, p, K3_SS[i % 3], K3_RS[(i // 3) % 3], K3_RRS[(i + 1) % 3], i % 2 == 1, (i // 2) % 2 == 1,
                       None))
     cases += [(4096, 24, 128, 128, 64, bf16, mask, None) for bf16 in (False, True) for mask in (False, True)]
+    # The fused cell's shape: 194 columns, S = 256, bf16
+    cases += [(4096, 24, 256, 194, 64, True, False, None), (64, 24, 256, 194, 64, True, True, None)]
     cases += [
         (4096, 24, 128, 128, 64, False, False, "same-probes"),
         (64, 24, 128, 128, 64, True, True, "same-probes"),
@@ -693,6 +765,8 @@ def k4_cases():
         (4096, 128, 10, 64, "euclidean", True, "copies"), (64, 1536, 10, 256, "cosine", True, "copies"),
         (7, 3, 32, 20, "dot", True, "copies"), (1, 4096, 10, 2048, "euclidean", True, "copies"),
         (7, 128, 10, 64, "euclidean", True, "empty"), (1, 1536, 33, 256, "cosine", False, "empty"),
+        # the fused cell's rows (194 columns: the element route), dot, copies
+        (4096, 194, 10, 64, "dot", True, None), (1, 194, 10, 64, "dot", True, None),
     ]
     return cases
 
@@ -967,21 +1041,10 @@ def phase_ivf_cell(torch, counted, argv=(), baseline=None) -> dict:
     """The bench cell through annbench.main, then K3 and K4 on the operands
     that one real search of the cell passes them."""
     from semadb_tpu_torch.ops.kernels import ivf_rerank, ivf_scan
-    from semadb_tpu_torch.tools import annbench
 
-    _zero_counts(counted)
-    keep: dict = {}
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = annbench.main(list(argv), keep=keep)
-    launches = {name: mod.LAUNCHES for name, mod in counted}
-    res = json.loads(buf.getvalue().strip().splitlines()[-1])
-    prof = res.pop("profile", None)
-    log(f"[ivf-cell] {json.dumps(res)}")
-    if prof is not None:
-        log(f"[ivf-cell] profile of one batch: {json.dumps(prof)}")
-    if rc != 0 or res["recall@10"] < CELL_RECALL:
-        raise AssertionError(f"the IVF cell's recall@10 {res['recall@10']} is below {CELL_RECALL} (rc {rc})")
+    res, prof, launches, _, keep = _run_annbench(counted, argv, "ivf-cell")
+    if res["recall@10"] < CELL_RECALL:
+        raise AssertionError(f"the IVF cell's recall@10 {res['recall@10']} is below {CELL_RECALL}")
     if launches["K3"] <= 0 or launches["K4"] <= 0:
         raise AssertionError(f"the IVF cell did not run K3 and K4 on the card: {launches}")
     log(f"[ivf-cell] launches during the cell's searches: {launches} (K3: one a call, "
@@ -1023,7 +1086,8 @@ def phase_ivf_cell(torch, counted, argv=(), baseline=None) -> dict:
           "per_query_bound_ms": _bound_ms(k3_bytes["per_query_read"]),
           "design_bytes_ms": _bound_ms(k3_bytes["design"]), "distinct_clusters": distinct,
           "live_slots_distinct": live_distinct, "valid_slots": valid, "by_kernel_ms": t3["by_kernel_ms"],
-          "kernels_per_call": t3["kernels_per_call"], "b_sweep_ms": sweep, "b1_call_ms": call1}
+          "kernels_per_call": t3["kernels_per_call"], "b_sweep_ms": sweep, "b1_call_ms": call1,
+          "call_ms": kc["k3_call"]}
     one_bytes, _ = _k4_bytes(torch, idx.vectors, q[:1], pool_i[:1], pool_d[:1], k)
     k4 = {"launches": launches["K4"], "max_abs_err": err4, "plain_ms": t4_plain, "dedup": dedup,
           "bound_ms": _bound_ms(k4_bytes), "bound_by": "bytes", "bytes": k4_bytes, "distinct_rows": rows4,
@@ -1033,7 +1097,8 @@ def phase_ivf_cell(torch, counted, argv=(), baseline=None) -> dict:
         f"{idx.slabs.dtype}, K4 dedup={dedup}); max |err| K3 {err3:.3g}, K4 {err4:.3g}")
     log(f"[ivf-cell] K3 {t3['ms']:.4f} ms a call, {t3['kernels_per_call']} device events a call, each one launch "
         f"a call (device, mean of {IVF_TIMED_RUNS}): "
-        + ", ".join(f"{n} {v:.4f}" for n, v in t3["by_kernel_ms"].items()) + f"; plain {t3_plain:.4f} ms")
+        + ", ".join(f"{n} {v:.4f}" for n, v in t3["by_kernel_ms"].items()) + f"; plain {t3_plain:.4f} ms; "
+        f"a call with its host work {kc['k3_call']:.4f} ms (CUDA events), {t3['ms'] / kc['k3_call']:.1%} of it")
     log(f"[ivf-cell] K3 bound {k3['bound_ms']:.4f} ms by bytes ({k3_bytes['distinct']} B: {distinct} distinct "
         f"probed clusters once, the rows of their {live_distinct} live slots), {k3['bound_ms'] / t3['ms']:.1%} of "
         f"it; the design's own traffic (with the f32[{B}, {p}, {S}] scratch written and read) "
@@ -1052,14 +1117,14 @@ def phase_ivf_cell(torch, counted, argv=(), baseline=None) -> dict:
     return {"res": res, "profile": prof, "k3": k3, "k4": k4, "index": idx, "queries": test}
 
 
-def _cell_kernels(torch, ivf_scan, ivf_rerank, idx, queries, what: str, cross_check: bool = False) -> dict:
+def _cell_kernels(torch, ivf_scan, ivf_rerank, idx, queries, what: str) -> dict:
     """K3 and K4 on the operands one real search of ``idx`` gives them (a
     batch of ``queries``, through ``_ivf_query(keep=...)``): each checked
     against its plain version, K3 and both plain versions timed, and the
     bytes of each kernel's bound counted (K3: the ids of each distinct probed
     cluster once, the rows and norms of its live slots; K4: each distinct live
-    pool row once). With ``cross_check`` K3's profiler time is held to a
-    call's CUDA-event time (``k3_call``) where its window lost launches."""
+    pool row once). K3's profiler time is held to a call's CUDA-event time
+    (``k3_call``) where its window lost launches."""
     ops: dict = {}
     idx.search_batch_async(queries, LIMIT, keep=ops)
     k3_ops, k4_ops = ops["k3"], ops["k4"]
@@ -1093,7 +1158,7 @@ def _cell_kernels(torch, ivf_scan, ivf_rerank, idx, queries, what: str, cross_ch
     }
     k4_bytes, rows4 = _k4_bytes(torch, idx.vectors, q, pool_i, pool_d, k)
     chunks = -(-B // ivf_scan.batch_chunk(B, p, S))
-    k3_call = _median_call_ms(torch, functools.partial(ivf_scan.ivf_probe_scan, *k3_ops)) if cross_check else None
+    k3_call = _median_call_ms(torch, functools.partial(ivf_scan.ivf_probe_scan, *k3_ops))
     return {
         "k3_ops": k3_ops, "k4_ops": k4_ops, "B": B, "p": p, "S": S, "r": r, "rr": rr, "k": k, "dedup": dedup,
         "err3": err3, "err4": err4, "k3_bytes": k3_bytes, "k4_bytes": k4_bytes, "rows4": rows4,
@@ -1225,24 +1290,13 @@ def phase_ivf_10m(torch, counted, argv=CELL_10M_ARGV) -> dict:
     WRITE_POINTS new points each through the two-level assignment."""
     from semadb_tpu_torch.index import ivf
     from semadb_tpu_torch.ops.kernels import ivf_rerank, ivf_scan
-    from semadb_tpu_torch.tools import annbench
     from semadb_tpu_torch.tools.datasets import embedding_like_device
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    _zero_counts(counted)
-    keep: dict = {}
-    buf = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = annbench.main(list(argv), keep=keep)
+    res, prof, launches, _, keep = _run_annbench(counted, argv, "ivf-10m")
     cell_s = time.perf_counter() - t0
-    launches = {name: mod.LAUNCHES for name, mod in counted}
-    res = json.loads(buf.getvalue().strip().splitlines()[-1])
-    prof = res.pop("profile", None)
-    log(f"[ivf-10m] {json.dumps(res)}")
-    if prof is not None:
-        log(f"[ivf-10m] profile of one batch: {json.dumps(prof)}")
     idx, test, bench, gt = keep["index"], keep["queries"], keep["bench"], keep["ground_truth"]
     n, batch = res["n"], res["batch"]
     # What the refit should choose, by the code: C from the automatic count,
@@ -1254,8 +1308,8 @@ def phase_ivf_10m(torch, counted, argv=CELL_10M_ARGV) -> dict:
     want = (want_c, want_s, want_dtype, want_c >= ivf.TWO_LEVEL_MIN_C)
     log(f"[ivf-10m] C, S, slab dtype, two-level: {got} (the code predicts {want}); super layer "
         f"{None if idx._sup_cents is None else tuple(idx._sup_cents.shape)}; {cell_s:.1f} s for annbench.main")
-    if rc != 0 or got != want or idx._sup_cents is None:
-        raise AssertionError(f"the 10M cell's refit chose {got}, not {want} (rc {rc})")
+    if got != want or idx._sup_cents is None:
+        raise AssertionError(f"the 10M cell's refit chose {got}, not {want}")
     if res["recall@10"] < CELL_10M_RECALL:
         raise AssertionError(f"the 10M cell's recall@10 {res['recall@10']} is below {CELL_10M_RECALL}")
     if launches["K3"] <= 0 or launches["K4"] <= 0:
@@ -1267,9 +1321,7 @@ def phase_ivf_10m(torch, counted, argv=CELL_10M_ARGV) -> dict:
             f"{row['recall_eps@10']:.4f} QPS {row['qps']:.1f} (of 2 passes: {row['qps_spread']})")
     log(f"[ivf-10m] launches during the cell's searches: {launches}")
 
-    # P2 lost K3 launches in every profiler window of this phase: its K3
-    # times are held to a call's CUDA-event time
-    kc = _cell_kernels(torch, ivf_scan, ivf_rerank, idx, test[:batch], "the 10M cell", cross_check=True)
+    kc = _cell_kernels(torch, ivf_scan, ivf_rerank, idx, test[:batch], "the 10M cell")
     k3_ops, k4_ops, k3_bytes, k3_call = kc["k3_ops"], kc["k4_ops"], kc["k3_bytes"], kc["k3_call"]
     t4 = _device_ms(torch, functools.partial(ivf_rerank.ivf_exact_rerank, *k4_ops), runs=IVF_TIMED_RUNS,
                     kernel="rerank_kernel")
@@ -1643,6 +1695,353 @@ def phase_hybrid(torch, counted, device, seed: int, n_points: int = HYBRID_POINT
             "member_call_ms": member_call_ms, "launches": launches, "checked": checked}
 
 
+def _k9_operands(torch, gen, b, p, s, m, k, masked, device):
+    """A code slab set for K9 at a shape: u8[c, s, m] codes, distinct ids from
+    2 on with 30% NIL slots, normal f32 tables, p distinct probes a query and
+    a u8 mask that admits about half the ids."""
+    c = max(2 * p, 32)
+    codes = torch.randint(0, k, (c, s, m), generator=gen, dtype=torch.uint8)
+    ids = (torch.randperm(c * s, generator=gen).reshape(c, s) + 2).to(torch.int32)
+    ids[torch.rand((c, s), generator=gen) < 0.3] = -1
+    table = torch.randn((b, m, k), generator=gen)
+    probe = torch.argsort(torch.rand((b, c), generator=gen), dim=1)[:, :p].to(torch.int32).contiguous()
+    mask = (torch.rand(c * s + 2, generator=gen) < 0.5).to(torch.uint8) if masked else None
+    return [None if t is None else t.to(device) for t in (table, probe, codes, ids, mask)]
+
+
+def _k9_dist_of(torch, table, codes, slab_ids):
+    """id → its ADC score for query b, in f64 on the host (first copy of the id)."""
+    index = {}
+    m = codes.shape[-1]
+
+    def dist_of(b, i):
+        if not index:
+            ids_h = slab_ids.cpu().numpy().reshape(-1)
+            index["order"] = np.argsort(ids_h, kind="stable")
+            index["sorted"] = ids_h[index["order"]]
+            index["codes"] = codes.reshape(-1, m).cpu().long()
+        cell = int(index["order"][np.searchsorted(index["sorted"], i)])
+        return float(table[b].double().cpu()[torch.arange(m), index["codes"][cell]].sum())
+
+    return dist_of
+
+
+def _k9_atol(torch, table):
+    """Per query: IVF_RTOL x M x max|table|, the size of the summed terms."""
+    return (IVF_RTOL * table.shape[1] * table.abs().amax(dim=(1, 2)).double()).cpu()
+
+
+def _k9_bytes(torch, probe, slab_ids, m, k, rr) -> dict:
+    """The least bytes of one probed K9 call: each distinct probed cluster's
+    ids once and the codes of its live slots once, the probe list, each
+    query's table once, the pool written once."""
+    b, p = probe.shape
+    s = slab_ids.shape[1]
+    probed = torch.unique(probe).long()
+    live = int((slab_ids[probed] != -1).sum())
+    return {"bytes": int(probed.numel()) * s * 4 + live * m + b * p * 4 + b * m * k * 4 + b * rr * 8,
+            "distinct_clusters": int(probed.numel()), "live_slots_distinct": live}
+
+
+def _k9_dense_bytes(table, codes, mask) -> int:
+    """The least bytes of one dense K9 call: the codes of the rows the mask
+    admits, the mask, each table once, the scores written once."""
+    b, m, k = table.shape
+    n = codes.shape[0]
+    live = n if mask is None else int(mask.sum())
+    return live * m + (0 if mask is None else n) + b * m * k * 4 + b * n * 4
+
+
+def phase_pq_kernels(torch, ivf_pq_scan, device) -> dict:
+    """K9's two entries against their plain versions at every listed shape."""
+    gen = torch.Generator().manual_seed(1357)
+    worst = worst_d = 0.0
+    for b, p, s, m, k, rr, masked in K9_CASES:
+        table, probe, codes, ids, mask = _k9_operands(torch, gen, b, p, s, m, k, masked, device)
+        what = f"K9 probed B={b} p={p} S={s} M={m} K={k} rr={rr} mask={masked}"
+        got = ivf_pq_scan.ivf_pq_probe_scan(table, probe, codes, ids, mask, rr)
+        torch.cuda.synchronize()
+        want = ivf_pq_scan.ivf_pq_probe_scan_plain(table, probe, codes, ids, mask, rr)
+        worst = max(worst, check_rows(torch, want, got, _k9_dist_of(torch, table, codes, ids),
+                                      _k9_atol(torch, table), what))
+    for b, n, m, k, masked in K9_DENSE_CASES:
+        codes = torch.randint(0, k, (n, m), generator=gen, dtype=torch.uint8).to(device)
+        table = torch.randn((b, m, k), generator=gen).to(device)
+        mask = (torch.rand(n, generator=gen) < 0.7).to(torch.uint8).to(device) if masked else None
+        got = ivf_pq_scan.pq_scan(table, codes, mask)
+        torch.cuda.synchronize()
+        want = ivf_pq_scan.pq_scan_plain(table, codes, mask)
+        what = f"K9 dense B={b} N={n} M={m} K={k} mask={masked}"
+        if not torch.equal(torch.isinf(got), torch.isinf(want)):
+            raise AssertionError(f"{what}: the masked rows differ")
+        fin = torch.isfinite(want)
+        err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+        if err > IVF_RTOL * m * float(table.abs().max()):
+            raise AssertionError(f"{what}: |err| {err}")
+        worst_d = max(worst_d, err)
+    log(f"[pq-kernels] K9 probed == plain at {len(K9_CASES)} shapes, dense == plain at {len(K9_DENSE_CASES)} "
+        f"shapes, scores within {IVF_RTOL:g} of M x max|table|, pools by the tie rule; max |err| probed "
+        f"{worst:.3g}, dense {worst_d:.3g}")
+    return {"k9_err": worst, "k9_dense_err": worst_d}
+
+
+def _run_annbench(counted, argv, tag: str) -> tuple:
+    """annbench.main(argv) with every launch count zeroed first, its JSON
+    result and profile logged under ``tag``: (the result without the
+    profile, the profile, the launches, K9's by entry, what it kept)."""
+    from semadb_tpu_torch.ops.kernels import ivf_pq_scan
+    from semadb_tpu_torch.tools import annbench
+
+    _zero_counts(counted)
+    keep: dict = {}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = annbench.main(list(argv), keep=keep)
+    launches = {name: mod.LAUNCHES for name, mod in counted}
+    by_entry = dict(ivf_pq_scan.LAUNCHES_BY)
+    if rc != 0:
+        raise AssertionError(f"annbench {argv} exited {rc}")
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    prof = res.pop("profile", None)
+    log(f"[{tag}] {json.dumps(res)}")
+    if prof is not None:
+        log(f"[{tag}] profile of one batch: {json.dumps(prof)}")
+    return res, prof, launches, by_entry, keep
+
+
+def phase_ivfpq_cell(torch, counted, ivf_pq_scan, ivf_rerank) -> dict:
+    """The IVF-PQ cell through annbench.main, then K9 and K4 on the operands
+    one real search of the cell passes them."""
+    res, prof, launches, by_entry, keep = _run_annbench(counted, PQ_CELL_ARGV, "ivfpq-cell")
+    if res["recall@10"] < PQ_CELL_RECALL or not res["pq"]["active"]:
+        raise AssertionError(f"the IVF-PQ cell's recall@10 {res['recall@10']} is below {PQ_CELL_RECALL}, "
+                             f"or PQ is not active: {res['pq']}")
+    if by_entry.get("probed", 0) <= 0 or launches["K4"] <= 0 or launches["K3"] != 0:
+        raise AssertionError(f"the IVF-PQ cell must run K9 and K4, and not K3: {launches}, K9 {by_entry}")
+    log(f"[ivfpq-cell] launches during the cell's searches: {launches}; K9 by entry {by_entry}")
+    idx, test = keep["index"], keep["queries"]
+    ops: dict = {}
+    idx.search_batch_async(test[: res["batch"]], LIMIT, keep=ops)
+    k9_ops, k4_ops = ops["k9"], ops["k4"]
+    table, probe, codes, ids, _, rr = k9_ops
+    B, p = probe.shape
+    C, S, M = codes.shape
+    K = table.shape[2]
+    got = ivf_pq_scan.ivf_pq_probe_scan(*k9_ops)
+    err9 = check_rows(torch, ivf_pq_scan.ivf_pq_probe_scan_plain(*k9_ops), got, _k9_dist_of(torch, table, codes, ids),
+                      _k9_atol(torch, table), "K9 on the IVF-PQ cell")
+    q, pool_i = k4_ops[1], k4_ops[2]
+    err4 = check_rows(torch, ivf_rerank.ivf_exact_rerank_plain(*k4_ops), ivf_rerank.ivf_exact_rerank(*k4_ops),
+                      _k4_dist_of(torch, idx.vectors, q, idx.metric),
+                      _k4_atol(torch, idx.vectors[: 1 + int(pool_i.max())], q), "K4 on the IVF-PQ cell")
+    nb = _k9_bytes(torch, probe, ids, M, K, rr)
+    t9 = _device_ms(torch, functools.partial(ivf_pq_scan.ivf_pq_probe_scan, *k9_ops), runs=IVF_TIMED_RUNS,
+                    kernel="pq_probe_scan_kernel")
+    t9_plain = _device_ms(torch, functools.partial(ivf_pq_scan.ivf_pq_probe_scan_plain, *k9_ops), runs=3)
+    one = (table[:1].contiguous(), probe[:1].contiguous()) + tuple(k9_ops[2:])
+    t9_b1 = _device_ms(torch, functools.partial(ivf_pq_scan.ivf_pq_probe_scan, *one), runs=IVF_TIMED_RUNS,
+                       kernel="pq_probe_scan_kernel")
+    call_b1 = _median_call_ms(torch, functools.partial(ivf_pq_scan.ivf_pq_probe_scan, *one))
+    b1_plain = _device_ms(torch, functools.partial(ivf_pq_scan.ivf_pq_probe_scan_plain, *one), runs=3)
+    b1_bytes = _k9_bytes(torch, probe[:1], ids, M, K, rr)["bytes"]
+    k9 = {"launches": by_entry["probed"], "max_abs_err": err9, "ms": t9, "plain_ms": t9_plain,
+          "bound_ms": _bound_ms(nb["bytes"]), "bound_by": "bytes", **nb, "b1_ms": t9_b1, "b1_call_ms": call_b1,
+          "b1_plain_ms": b1_plain,
+          "b1_bound_ms": _bound_ms(b1_bytes), "shape": {"B": B, "p": p, "C": C, "S": S, "M": M, "K": K, "rr": rr}}
+    # The dense entry at the batch's tables over K9_DENSE_ROWS rows, filled
+    # with the codes of the cell's first clusters and masked by their NIL
+    # slots (the cell's own overflow pool is empty)
+    n_cl = -(-K9_DENSE_ROWS // S)
+    dmask = (ids[:n_cl] != -1).reshape(-1).to(torch.uint8)
+    dense_ops = (table, codes[:n_cl].reshape(-1, M), dmask)
+    want_d = ivf_pq_scan.pq_scan_plain(*dense_ops)
+    got_d = ivf_pq_scan.pq_scan(*dense_ops)
+    fin = torch.isfinite(want_d)
+    if not torch.equal(fin, torch.isfinite(got_d)):
+        raise AssertionError("K9 dense on the IVF-PQ cell's codes: the masked rows differ")
+    err_d = float((got_d[fin] - want_d[fin]).abs().max()) if bool(fin.any()) else 0.0
+    if err_d > IVF_RTOL * M * float(table.abs().max()):
+        raise AssertionError(f"K9 dense on the IVF-PQ cell's codes: |err| {err_d}")
+    t9d = _device_ms(torch, functools.partial(ivf_pq_scan.pq_scan, *dense_ops), runs=IVF_TIMED_RUNS,
+                     kernel="pq_scan_dense_kernel")
+    t9d_plain = _device_ms(torch, functools.partial(ivf_pq_scan.pq_scan_plain, *dense_ops), runs=3)
+    dense = {"ms": t9d, "plain_ms": t9d_plain, "bound_ms": _bound_ms(_k9_dense_bytes(*dense_ops)),
+             "max_abs_err": err_d,
+             "shape": {"B": B, "N": int(dense_ops[1].shape[0]), "M": M, "K": K, "live": int(dmask.sum())}}
+    nb4, rows4 = _k4_bytes(torch, idx.vectors, q, pool_i, k4_ops[3], LIMIT)
+    t4 = _k4_times(torch, ivf_rerank, k4_ops)
+    t4_plain = _device_ms(torch, functools.partial(ivf_rerank.ivf_exact_rerank_plain, *k4_ops), runs=3)
+    k4 = {"max_abs_err": err4, "launches": launches["K4"], "bound_ms": _bound_ms(nb4), "distinct_rows": rows4,
+          "rr": rr, "plain_ms": t4_plain, **t4}
+    log(f"[ivfpq-cell] K9 == plain and K4 == plain on the cell's operands (B={B}, p={p}, C={C}, S={S}, M={M}, "
+        f"K={K}, rr={rr}); max |err| K9 {err9:.3g}, K4 {err4:.3g}")
+    log(f"[ivfpq-cell] K9 probed {t9:.4f} ms a call (device, mean of {IVF_TIMED_RUNS}), bound {k9['bound_ms']:.4f} "
+        f"ms by bytes ({nb['bytes']} B: {nb['distinct_clusters']} distinct probed clusters, {nb['live_slots_distinct']} "
+        f"live slots), {k9['bound_ms'] / t9:.1%} of it; plain {t9_plain:.4f} ms; B=1 {t9_b1:.4f} ms on the device "
+        f"(bound {k9['b1_bound_ms']:.5f}), {call_b1:.4f} ms a call, plain {b1_plain:.4f} ms")
+    log(f"[ivfpq-cell] K9 dense == plain on the cell's tables over the codes of its first clusters "
+        f"{dense['shape']} (max |err| {err_d:.3g}): {t9d:.4f} ms (bound {dense['bound_ms']:.4f}, "
+        f"{dense['bound_ms'] / t9d:.1%} of it); plain {t9d_plain:.4f} ms")
+    log("[ivfpq-cell] " + _k4_line("K4 at rr = 256", t4, k4["bound_ms"]) + f"; plain {t4_plain:.4f} ms")
+    return {"res": res, "profile": prof, "k9": k9, "k9_dense": dense, "k4": k4}
+
+
+def phase_fused_cell(torch, counted, ivf_scan, ivf_rerank) -> dict:
+    """The fused cell through annbench.main, then K3 and K4 on the operands
+    one real search of the cell passes them."""
+    res, prof, launches, _, keep = _run_annbench(counted, FUSED_CELL_ARGV, "fused-cell")
+    shape = {key: res[key] for key in FUSED_CELL_SHAPE}
+    if shape != FUSED_CELL_SHAPE:
+        raise AssertionError(f"the fused cell took {shape}, not the predicted {FUSED_CELL_SHAPE}")
+    if res["recall@10"] < FUSED_CELL_RECALL:
+        raise AssertionError(f"the fused cell's recall@10 {res['recall@10']} is below {FUSED_CELL_RECALL}")
+    if launches["K3"] <= 0 or launches["K4"] <= 0:
+        raise AssertionError(f"the fused cell did not run K3 and K4 on the card: {launches}")
+    fused, views = keep["index"], keep["views"]
+    inner = fused.index
+    if ivf_rerank.route_of(inner.vectors) != "element":
+        raise AssertionError(f"K4 takes the {ivf_rerank.route_of(inner.vectors)} route at D = {fused.aug_dim}")
+    psi, _ = fused._psi([v[: res["batch"]] for v in views], None)
+    kc = _cell_kernels(torch, ivf_scan, ivf_rerank, inner, psi, "the fused cell")
+    t4 = _k4_times(torch, ivf_rerank, kc["k4_ops"])
+    k3 = {"ms": kc["t3"]["ms"], "plain_ms": kc["t3_plain"], "bound_ms": _bound_ms(kc["k3_bytes"]["distinct"]),
+          "max_abs_err": kc["err3"], "launches": launches["K3"], "call_ms": kc["k3_call"],
+          "shape": {key: kc[key] for key in ("B", "p", "S", "r", "rr")}, "slab_dtype": res["slab_dtype"]}
+    k4 = {"plain_ms": kc["t4_plain"], "bound_ms": _bound_ms(kc["k4_bytes"]), "max_abs_err": kc["err4"],
+          "launches": launches["K4"], "route": "element", "D": fused.aug_dim, "dedup": kc["dedup"], **t4}
+    log(f"[fused-cell] launches {launches}; K3 == plain and K4 == plain on the cell's operands "
+        f"({k3['shape']}, {res['slab_dtype']}); max |err| K3 {kc['err3']:.3g}, K4 {kc['err4']:.3g}")
+    log(f"[fused-cell] K3 {k3['ms']:.4f} ms a call (bound {k3['bound_ms']:.4f}, {k3['bound_ms'] / k3['ms']:.1%}); "
+        f"a call with its host work {k3['call_ms']:.4f} ms (CUDA events), {k3['ms'] / k3['call_ms']:.1%} of it; "
+        f"plain {k3['plain_ms']:.4f} ms")
+    log("[fused-cell] " + _k4_line("K4 on its element route at D = 194", t4, k4["bound_ms"])
+        + f"; plain {k4['plain_ms']:.4f} ms")
+    return {"res": res, "profile": prof, "k3": k3, "k4": k4}
+
+
+def phase_pq_fused_http(torch, counted, device, seed: int, n_points: int = HTTP_PQ_POINTS) -> dict:
+    """A collection with IVF-PQ, flat-PQ and fused properties over the port's
+    node and HTTP v2 server, every result checked against numpy."""
+    import uuid
+
+    from semadb_tpu_torch.models import Point
+    from semadb_tpu_torch.ops.kernels import ivf_pq_scan
+    from semadb_tpu_torch.ops.topk import tie_rule_errors
+    from semadb_tpu_torch.shard import pointstore
+    from semadb_tpu_torch.tools import dbpedia_bq as bq
+    from semadb_tpu_torch.tools.datasets import embedding_like_views
+
+    name = "pqfused"
+    pq = {"type": "product", "product": {"numCentroids": 256, "numSubVectors": 8, "triggerThreshold": 10000}}
+    d1, d2 = HTTP_VIEWS
+    schema = {
+        "ivfpq": {"type": "vectorIVF", "vectorIVF": {"vectorSize": d1, "distanceMetric": "euclidean", "quantizer": pq}},
+        "flatpq": {"type": "vectorFlat", "vectorFlat": {"vectorSize": d1, "distanceMetric": "euclidean",
+                                                        "quantizer": pq}},
+        "fused": {"type": "vectorFused", "vectorFused": {"assignCopies": 4, "views": [
+            {"vectorSize": d1, "distanceMetric": "euclidean", "weight": 0.7},
+            {"vectorSize": d2, "distanceMetric": "euclidean", "weight": 0.3}]}},
+    }
+    ds1, ds2 = embedding_like_views(n_points, [d1, d2], 10, seed=seed + 13)
+    x1, x2 = ds1.train.astype(np.float64), ds2.train.astype(np.float64)
+    rng = np.random.default_rng([seed, 13])
+    ids = [str(uuid.UUID(bytes=rng.bytes(16), version=4)) for _ in range(n_points)]
+    row_of = {pid: i for i, pid in enumerate(ids)}
+    checked = {"ivfpq": 0, "flatpq": 0, "fused": 0}
+    hits = {"ivfpq": 0, "fused": 0}
+    with tempfile.TemporaryDirectory(prefix="semadb_smoke_pq_") as root:
+        cfg = bq.slice_config(root)
+        _zero_counts(counted)
+        with bq.serving(cfg, device) as srv:
+            out = bq.http_json(srv.base, "POST", "", {"id": name, "indexSchema": schema, "shardPlacement": "device"})
+            assert out == {"message": "collection created"}, out
+            col = srv.node.get_collection(bq.USER["X-User-Id"], name)
+            col.user_plan = srv.plan
+            t0 = time.perf_counter()
+            for lo in range(0, n_points, 5000):
+                pts = [Point.from_map({"ivfpq": ds1.train[i].tolist(), "flatpq": ds1.train[i].tolist(),
+                                       "fused": [ds1.train[i].tolist(), ds2.train[i].tolist()]}, uuid.UUID(ids[i]))
+                       for i in range(lo, min(lo + 5000, n_points))]
+                failed = srv.node.insert_points(col, pts)
+                assert failed == [], failed
+            ingest_s = time.perf_counter() - t0
+
+            def indices_and_nodes(shard):
+                nodes = []
+                shard.db.read(lambda bm: nodes.extend(
+                    pointstore.get_point_node_id_by_uuid(bm.get(pointstore.POINTS_BUCKET_NAME), uuid.UUID(pid))
+                    for pid in ids))
+                return (shard.device_indices["index/vectorFlat/flatpq"],
+                        shard.device_indices["index/vectorIVF/ivfpq"], np.asarray(nodes, np.int64))
+
+            flat, ivf, nodes = srv.node.shard_manager.do_with_shard(col, col.shard_ids[0], indices_and_nodes)
+            if not (flat.store.fitted and ivf.pq_active):
+                raise AssertionError("the product quantizers did not fit at 10,000 points")
+            # numpy's ADC over the flat store's own codes (row i's at its node
+            # id) and codebooks (and rotation)
+            st = flat.store.state
+            codes = st.codes.cpu().numpy()[nodes].astype(np.int64)
+            cb = st.aux.cpu().numpy().astype(np.float64)
+            rot = None if st.rot is None else st.rot.cpu().numpy().astype(np.float64)
+            for qi in range(len(ds1.test)):
+                q1, q2 = ds1.test[qi], ds2.test[qi]
+                d_ivf = ((x1 - q1.astype(np.float64)) ** 2).sum(-1)
+                d_fused = 0.7 * d_ivf + 0.3 * ((x2 - q2.astype(np.float64)) ** 2).sum(-1)
+                qr = q1.astype(np.float64) if rot is None else q1.astype(np.float64) @ rot
+                tab = ((qr.reshape(8, 1, -1) - cb) ** 2).sum(-1)  # [M, K]
+                d_adc = tab[np.arange(8)[None, :], codes].sum(-1)
+                for prop, key, body, dist in (
+                    ("ivfpq", "vectorIVF", {"vector": q1.tolist()}, d_ivf),
+                    ("flatpq", "vectorFlat", {"vector": q1.tolist()}, d_adc),
+                    ("fused", "vectorFused", {"vectors": [q1.tolist(), q2.tolist()]}, d_fused),
+                ):
+                    res = bq.http_json(srv.base, "POST", f"/{name}/points/search", {"query": {
+                        "property": prop, key: {**body, "operator": "near", "limit": 10}}, "limit": 10})
+                    got = [row_of[pnt["_id"]] for pnt in res["points"]]
+                    if len(got) != 10:
+                        raise AssertionError(f"HTTP {prop}: {len(got)} results")
+                    atol = 1e-4 * max(1.0, float(np.abs(dist).max()))
+                    for pnt, row in zip(res["points"], got):
+                        if abs(pnt["_distance"] - dist[row]) > 1e-4 * max(1.0, abs(dist[row])):
+                            raise AssertionError(f"HTTP {prop}: distance {pnt['_distance']} of a point at {dist[row]}")
+                    truth = np.argsort(dist, kind="stable")[:10]
+                    if prop == "flatpq":
+                        errs = tie_rule_errors(dist[truth], truth.tolist(), [p["_distance"] for p in res["points"]],
+                                               got, lambda i: dist[i], atol=atol)
+                        if errs:
+                            raise AssertionError(f"HTTP flatpq against numpy's ADC: {errs[:3]}")
+                    else:
+                        hits[prop] += len(set(truth.tolist()) & set(got))
+                    checked[prop] += 1
+            launches = {nm: mod.LAUNCHES for nm, mod in counted}
+            by_entry = dict(ivf_pq_scan.LAUNCHES_BY)
+            # K9's dense entry at the flat index's shape: one query over its codes
+            table = flat.store.prepare_queries(torch.from_numpy(ds1.test[:1]).to(device))
+            dense_ops = (table, st.codes, flat.exists.view(torch.uint8))
+            t9d = _device_ms(torch, functools.partial(ivf_pq_scan.pq_scan, *dense_ops), runs=IVF_TIMED_RUNS,
+                             kernel="pq_scan_dense_kernel")
+            t9d_plain = _device_ms(torch, functools.partial(ivf_pq_scan.pq_scan_plain, *dense_ops), runs=3)
+            call_ms = _median_call_ms(torch, functools.partial(ivf_pq_scan.pq_scan, *dense_ops))
+            err = float((ivf_pq_scan.pq_scan(*dense_ops) - ivf_pq_scan.pq_scan_plain(*dense_ops))
+                        .nan_to_num(posinf=0.0).abs().max())
+            dense = {"ms": t9d, "plain_ms": t9d_plain, "call_ms": call_ms,
+                     "bound_ms": _bound_ms(_k9_dense_bytes(*dense_ops)), "max_abs_err": err,
+                     "shape": {"B": 1, "N": int(st.codes.shape[0]), "M": 8, "K": 256,
+                               "live": int(flat.exists.sum())}}
+    recall = {prop: h / (10 * checked[prop]) for prop, h in hits.items()}
+    log(f"[pq-http] {n_points} points (vectorIVF + PQ, vectorFlat + PQ, vectorFused {d1}+{d2}) in one shard through "
+        f"ClusterNode.insert_points in {ingest_s:.2f} s; HTTP searches checked {checked}: recall@10 {recall}, every "
+        f"returned distance exact; flat PQ equal to numpy's ADC by the tie rule; launches {launches}, K9 by entry "
+        f"{by_entry}")
+    log(f"[pq-http] K9 dense at the flat index's shape {dense['shape']}: {t9d:.4f} ms on the device (bound "
+        f"{dense['bound_ms']:.5f}), {call_ms:.4f} ms a call; plain {t9d_plain:.4f} ms")
+    if min(recall.values()) < HTTP_PQ_RECALL:
+        raise AssertionError(f"HTTP recall@10 {recall} is below {HTTP_PQ_RECALL}")
+    if by_entry.get("probed", 0) <= 0 or by_entry.get("dense", 0) <= 0 or launches["K3"] <= 0 or launches["K4"] <= 0:
+        raise AssertionError(f"the HTTP searches did not run K9's two entries, K3 and K4: {launches}, K9 {by_entry}")
+    return {"recall": recall, "launches": launches, "k9_by_entry": by_entry, "dense": dense}
+
+
 def _zero_counts(counted) -> None:
     """Every kernel's launch count to 0, before a path is driven."""
     for _, mod in counted:
@@ -1672,8 +2071,8 @@ def main() -> int:
     device = torch.device("cuda")
     t_start = time.perf_counter()
     env = phase_environment(torch)
-    hamming, gather, ivf_scan, ivf_rerank = phase_build()
-    counted = (("K1", hamming), ("K2", gather), ("K3", ivf_scan), ("K4", ivf_rerank))
+    hamming, gather, ivf_scan, ivf_rerank, ivf_pq_scan = phase_build()
+    counted = (("K1", hamming), ("K2", gather), ("K3", ivf_scan), ("K4", ivf_rerank), ("K9", ivf_pq_scan))
     worst = phase_kernel(torch, hamming, device)
     sl = phase_slice(torch, hamming, gather, device, args.seed)
     timing = phase_timing(torch, hamming, sl["codes"], sl["qcodes"])
@@ -1682,6 +2081,7 @@ def main() -> int:
     g_worst = phase_gather_kernel(torch, gather, device)
     gb = phase_gatherbench(torch, hamming, gather)
     kerr = phase_ivf_kernels(torch, ivf_scan, ivf_rerank, device)
+    pqerr = phase_pq_kernels(torch, ivf_pq_scan, device)
     baseline = load_k4_baseline(args.k4_baseline) if args.k4_baseline else None
     cell = phase_ivf_cell(torch, counted, baseline=baseline)
     proj = phase_k4_projected(torch, ivf_rerank, args.seed, baseline)
@@ -1690,6 +2090,9 @@ def main() -> int:
     wide = phase_wide_filter(torch, counted, cell["index"], cell["queries"], args.seed)
     del cell["index"], cell["queries"]
     big = phase_ivf_10m(torch, counted)
+    pqcell = phase_ivfpq_cell(torch, counted, ivf_pq_scan, ivf_rerank)
+    fcell = phase_fused_cell(torch, counted, ivf_scan, ivf_rerank)
+    http = phase_pq_fused_http(torch, counted, device, args.seed)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     ivf_shape = (f"the IVF bench cell's operands: B={cell['res']['batch']} queries, p={cell['res']['probes']}, "
                  f"C={cell['res']['clusters']}, S={cell['res']['slab']}, {cell['res']['slab_dtype']} slabs; "
@@ -1737,26 +2140,30 @@ def main() -> int:
         "source": "semadb_tpu_torch/csrc/ivf_scan.cu",
         "replaces": "semadb_tpu/index/ivf.py:428",
         **{key: cell["k3"][key] for key in ("launches", "ms", "plain_ms", "bound_ms", "bound_by")},
-        "max_abs_err": max(kerr["k3_err"], cell["k3"]["max_abs_err"], big["k3"]["max_abs_err"]),
+        "max_abs_err": max(kerr["k3_err"], cell["k3"]["max_abs_err"], big["k3"]["max_abs_err"],
+                           fcell["k3"]["max_abs_err"]),
         "library_ms": None,
         "library": LIBRARY_NONE,
         "kernels_per_call": cell["k3"]["kernels_per_call"],
         "by_kernel_ms": cell["k3"]["by_kernel_ms"],
         "b_sweep_ms": {str(b): v for b, v in cell["k3"]["b_sweep_ms"].items()},
         "b1_call_ms": cell["k3"]["b1_call_ms"],
+        "call_ms": cell["k3"]["call_ms"],
         "bound_bytes": cell["k3"]["bytes"],
         "per_query_bound_ms": cell["k3"]["per_query_bound_ms"],
         "launches_hybrid": hybrid["launches"]["K3"],
         "launches_wide_filter": wide["launches"]["K3"],
         "shape": ivf_shape + "; every device event of a call (kernels and memset)",
         "cell_10m": {key: v for key, v in big["k3"].items() if key != "max_abs_err"},
+        "fused_cell": {key: v for key, v in fcell["k3"].items() if key != "max_abs_err"},
     }, {
         "name": "K4 ivf_exact_rerank (copy dedup and exact rerank of the coarse pool)",
         "route": "cuda",
         "source": "semadb_tpu_torch/csrc/ivf_rerank.cu",
         "replaces": "semadb_tpu/index/ivf.py:510",
         **{key: cell["k4"][key] for key in ("launches", "ms", "plain_ms", "bound_ms", "bound_by")},
-        "max_abs_err": max(kerr["k4_err"], cell["k4"]["max_abs_err"], proj["max_abs_err"], big["k4"]["max_abs_err"]),
+        "max_abs_err": max(kerr["k4_err"], cell["k4"]["max_abs_err"], proj["max_abs_err"], big["k4"]["max_abs_err"],
+                           pqcell["k4"]["max_abs_err"], fcell["k4"]["max_abs_err"]),
         "library_ms": None,
         "library": LIBRARY_NONE_K4,
         "bound_bytes": cell["k4"]["bytes"],
@@ -1768,6 +2175,36 @@ def main() -> int:
         "launches_hybrid": hybrid["launches"]["K4"],
         "launches_wide_filter": wide["launches"]["K4"],
         "cell_10m": {key: v for key, v in big["k4"].items() if key != "max_abs_err"},
+        "ivfpq_cell": {key: v for key, v in pqcell["k4"].items() if key != "max_abs_err"},
+        "fused_cell": {key: v for key, v in fcell["k4"].items() if key != "max_abs_err"},
+    }, {
+        "name": "K9 ivf_pq_probe_scan (ADC scan of the probed code slabs with a running top-rr)",
+        "route": "cuda",
+        "source": "semadb_tpu_torch/csrc/ivf_pq_scan.cu",
+        "replaces": "semadb_tpu/index/ivf.py:579",
+        **{key: pqcell["k9"][key] for key in ("launches", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "max_abs_err": max(pqerr["k9_err"], pqcell["k9"]["max_abs_err"]),
+        "library_ms": None,
+        "library": LIBRARY_NONE_K9,
+        "shape": ("the IVF-PQ cell's operands: " + json.dumps(pqcell["k9"]["shape"])
+                  + f"; device time per call, mean of {IVF_TIMED_RUNS}"),
+        **{key: pqcell["k9"][key] for key in ("bytes", "distinct_clusters", "live_slots_distinct", "b1_ms",
+                                              "b1_call_ms", "b1_bound_ms", "b1_plain_ms")},
+        "launches_http": http["k9_by_entry"].get("probed", 0),
+    }, {
+        "name": "K9 pq_scan (dense ADC scan: flat PQ and the IVF-PQ overflow pool)",
+        "route": "cuda",
+        "source": "semadb_tpu_torch/csrc/ivf_pq_scan.cu",
+        "replaces": "semadb_tpu/vectorstore/store.py:330",
+        "launches": http["k9_by_entry"].get("dense", 0),
+        **{key: http["dense"][key] for key in ("ms", "plain_ms", "bound_ms", "call_ms")},
+        "bound_by": "bytes",
+        "max_abs_err": max(pqerr["k9_dense_err"], http["dense"]["max_abs_err"], pqcell["k9_dense"]["max_abs_err"]),
+        "library_ms": None,
+        "library": LIBRARY_NONE_K9_DENSE,
+        "shape": ("the HTTP phase's flat PQ index, one query: " + json.dumps(http["dense"]["shape"])
+                  + f"; device time per call, mean of {IVF_TIMED_RUNS}"),
+        "ivfpq_batch": {key: v for key, v in pqcell["k9_dense"].items() if key != "max_abs_err"},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

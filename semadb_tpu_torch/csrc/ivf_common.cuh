@@ -1,6 +1,7 @@
-// Pieces shared by the IVF query kernels K3 (ivf_scan.cu) and K4
-// (ivf_rerank.cu): the team of lanes that scores one row, bf16 unpacking,
-// and the bitonic sort that selects in shared memory.
+// Pieces shared by the IVF query kernels K3 (ivf_scan.cu), K4
+// (ivf_rerank.cu) and K9 (ivf_pq_scan.cu): the team of lanes that scores one
+// row, bf16 unpacking, the bitonic sort, and the running top-rr that K3's
+// merge and K9 keep in shared memory (warp_append, keep_top, make_room).
 //
 // A "team" is ts lanes of one warp (ts a power of two, 1..32) that score one
 // row together: each lane takes every ts-th unit of the row (a unit is 16
@@ -59,6 +60,66 @@ __device__ inline void bitonic_sort(float* d, int* id, int n) {
       __syncthreads();
     }
   }
+}
+
+__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+
+// Append (d, id) to the shared buffer when take: one atomic per warp. Every
+// lane of the warp calls it.
+__device__ __forceinline__ void warp_append(bool take, float d, int id, int* count, float* bd, int* bi) {
+  const unsigned m = __ballot_sync(0xffffffffu, take);
+  if (m == 0) return;
+  const int lane = threadIdx.x & 31;
+  const int leader = __ffs(m) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(count, __popc(m));
+  base = __shfl_sync(0xffffffffu, base, leader);
+  if (take) {
+    const int pos = base + __popc(m & ((1u << lane) - 1u));
+    bd[pos] = d;
+    bi[pos] = id;
+  }
+}
+
+// Sort the count appended pairs and cut to rr: the block's running top-rr,
+// with thresh its rr-th score once rr are kept (else inf). The buffer holds
+// at least the next power of two of count. Every thread calls it between two
+// __syncthreads().
+__device__ __forceinline__ void keep_top(float* bd, int* bi, int rr, int* count, int* kept, float* thresh) {
+  const int n = *count;
+  if (n > *kept) {
+    int P = 1;
+    while (P < n) P <<= 1;
+    for (int i = n + threadIdx.x; i < P; i += blockDim.x) {
+      bd[i] = inf_f();
+      bi[i] = INT_MAX;
+    }
+    __syncthreads();
+    bitonic_sort(bd, bi, P);
+    if (threadIdx.x == 0) {
+      *kept = n < rr ? n : rr;
+      *count = *kept;
+      *thresh = *kept == rr ? bd[rr - 1] : inf_f();
+    }
+  }
+  __syncthreads();
+}
+
+// Before a step that appends up to `step` pairs to a buffer of nbuf: cut it
+// to the running top-rr when the appends might not fit, and return the bound
+// to append under (th, lowered to the rr-th kept score after a cut). Every
+// thread reads count before any thread appends again, so all take the same
+// branch (a warp that appended before a slower one read count would split
+// the block at keep_top's barriers). Every thread calls it.
+__device__ __forceinline__ float make_room(float* bd, int* bi, int rr, int step, int nbuf, int* count, int* kept,
+                                           float* thresh, float th) {
+  const bool cut = *count + step > nbuf;
+  __syncthreads();
+  if (cut) {
+    keep_top(bd, bi, rr, count, kept, thresh);
+    th = fminf(th, *thresh);  // both bound the rr-th score from above
+  }
+  return th;
 }
 
 inline int pow2_at_least(int x) {

@@ -93,51 +93,14 @@ constexpr int kMergeUnroll = 4;
 constexpr int kQLoads = 4;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+using ivf::inf_f;
+using ivf::keep_top;
+using ivf::warp_append;
 
 // Pairs of one work item: as many queries of r floats as kQBytes holds, 1..kQmax.
 __host__ __device__ inline int group_size(int r) {
   const int q = kQBytes / (((r + 7) & ~7) * 4);
   return q < 1 ? 1 : (q > kQmax ? kQmax : q);
-}
-
-// Append (d, id) to the shared buffer when take: one atomic per warp. Every
-// lane of the warp calls it.
-__device__ __forceinline__ void warp_append(bool take, float d, int id, int* count, float* bd, int* bi) {
-  const unsigned m = __ballot_sync(kFullMask, take);
-  if (m == 0) return;
-  const int lane = threadIdx.x & 31;
-  const int leader = __ffs(m) - 1;
-  int base = 0;
-  if (lane == leader) base = atomicAdd(count, __popc(m));
-  base = __shfl_sync(kFullMask, base, leader);
-  if (take) {
-    const int pos = base + __popc(m & ((1u << lane) - 1u));
-    bd[pos] = d;
-    bi[pos] = id;
-  }
-}
-
-// Sort the count appended pairs and cut to rr: the block's running top-rr.
-// Every thread calls it between two __syncthreads().
-__device__ __forceinline__ void keep_top(float* bd, int* bi, int rr, int* count, int* kept, float* thresh) {
-  const int n = *count;
-  if (n > *kept) {
-    int P = 1;
-    while (P < n) P <<= 1;
-    for (int i = n + threadIdx.x; i < P; i += blockDim.x) {
-      bd[i] = inf_f();
-      bi[i] = INT_MAX;
-    }
-    __syncthreads();
-    ivf::bitonic_sort(bd, bi, P);
-    if (threadIdx.x == 0) {
-      *kept = n < rr ? n : rr;
-      *count = *kept;
-      *thresh = *kept == rr ? bd[rr - 1] : inf_f();
-    }
-  }
-  __syncthreads();
 }
 
 __global__ void ivf_scan_count(const int32_t* __restrict__ probe, long long n, int C, int* __restrict__ counts) {
@@ -563,10 +526,7 @@ ivf_scan_merge(const float* __restrict__ scratch, const int32_t* __restrict__ pr
   // cell, where about 70 pass the bound)
   float th = thresh;
   for (long long base = 0; base < total; base += step) {
-    if (count + step > nbuf) {
-      keep_top(bd, bi, rr, &count, &kept, &thresh);
-      th = fminf(th, thresh);  // both bound the rr-th score from above
-    }
+    th = ivf::make_room(bd, bi, rr, step, nbuf, &count, &kept, &thresh, th);
     float d[kMergeUnroll];
 #pragma unroll
     for (int i = 0; i < kMergeUnroll; ++i) {

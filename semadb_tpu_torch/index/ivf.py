@@ -1,8 +1,7 @@
 """IVF (inverted-file / clustered) vector index, in PyTorch with CUDA kernels.
 
-Port of ``semadb_tpu/index/ivf.py`` without the product quantizer (IVF-PQ).
-Layout as there: traversal state beside the exact-rerank state, all tensors
-on the index's device.
+Port of ``semadb_tpu/index/ivf.py``. Layout as there: traversal state beside
+the exact-rerank state, all tensors on the index's device.
 
   - ``vectors f32[cap, D]``  per-node full-precision rows: the source of
     truth for writes and refits, and what the exact rerank reads
@@ -18,6 +17,10 @@ on the index's device.
   - ``slab_ids i32[C, S]``   node id per slot (-1 = empty)
   - overflow rows + ids      points whose home and relocation clusters were
     all full, and not-yet-clustered inserts; scanned densely
+  - IVF-PQ (a product quantizer, D ≤ PROJ_DIM): from the first refit at the
+    quantizer's trigger on, ``slab_codes u8[C, S, M]`` and ``ovf_codes
+    u8[O, M]`` take the place of the f32 slabs and overflow rows (shrunk to
+    placeholders), with ``pq_codebook f32[M, K, D/M]`` fit once
 
 Placement, SOAR copies, spill relocation and the refit schedule are the JAX
 package's, line for line (its module docstring gives the measurements behind
@@ -28,8 +31,13 @@ the device, so each probed cluster is read once per group of up to 16 of the
 queries that probe it) → the overflow scan
 (``torch.matmul`` + ``topk``) merged into the pool → K4, the hand-written
 exact rerank (``ops/kernels/ivf_rerank.py``), which also returns each id
-once when points have copies → top-k. On CPU tensors both kernels run their
-plain PyTorch versions.
+once when points have copies → top-k. An IVF-PQ query
+(:func:`_ivf_query_pq`) is: probe selection → the ADC tables
+(``pq_query_table``, M batched products) → K9, the hand-written ADC scan of
+the probed code slabs with a running top-rr (``ops/kernels/ivf_pq_scan.py``),
+rr = max(RERANK_POOL_PQ, 2k) → K9's dense entry over the live overflow codes,
+merged into the pool → K4 → top-k. On CPU tensors the kernels run their plain
+PyTorch versions.
 
 Where the port differs from the JAX package:
   - writes update tensors in place (``index_copy_`` / ``index_put_``) under
@@ -50,7 +58,9 @@ Where the port differs from the JAX package:
     itself looks: a row whose two-level candidates are not all among its
     own default probes takes its first probes (``_within_own_probes``); the
     JAX package writes it where its own search may not find it;
-  - a product quantizer raises ``NotImplementedError``;
+  - ``refits`` counts refits, bound with the arrays each refit makes, so a
+    wrapper that derives state from the centroids (the fused engine) can tell
+    a new fit from the one it saw;
   - the tuning values the JAX package reads from ``SEMADB_IVF_*``
     environment variables are constants here, at its defaults.
 """
@@ -68,6 +78,7 @@ import torch
 from semadb_tpu_torch.models import constants as C
 from semadb_tpu_torch.models.schema import VectorIVFParams
 from semadb_tpu_torch.ops.distance import pairwise_distance
+from semadb_tpu_torch.ops.kernels.ivf_pq_scan import ivf_pq_probe_scan, pq_scan
 from semadb_tpu_torch.ops.kernels.ivf_rerank import ivf_exact_rerank
 from semadb_tpu_torch.ops.kernels.ivf_scan import ivf_probe_scan
 from semadb_tpu_torch.utils.grow import initial_capacity, next_capacity
@@ -77,7 +88,7 @@ from semadb_tpu_torch.vectorstore.kmeans import (
     kmeans_fit_large,
     kmeans_fit_two_level,
 )
-from semadb_tpu_torch.vectorstore.store import host_tensor
+from semadb_tpu_torch.vectorstore.store import QuantConfig, host_tensor, pq_encode, pq_fit, pq_query_table
 
 NIL = -1
 TARGET_CLUSTER_SIZE = 24
@@ -255,11 +266,12 @@ def _select_probes(qp, centroids, cent_sq, p: int) -> torch.Tensor:
     return torch.gather(i, 1, sel).to(torch.int32)
 
 
-def _overflow_scan(qp, ovf_vecs, ovf_sq, ovf_ids, filter_mask, rr: int):
-    """Dense scan of the overflow rows: [B, O] scores (chunked past
-    OVF_CHUNK_BYTES), NIL and filtered rows at inf, top-rr of each chunk.
+def _overflow_scan(score, B: int, ovf_ids, filter_mask, rr: int):
+    """Dense scan of the overflow rows: ``score(lo, hi, ok)`` gives the
+    [B, hi - lo] scores of rows lo..hi-1 with those outside ``ok`` (NIL or
+    filtered) at inf; chunked past OVF_CHUNK_BYTES, top-rr of each chunk.
     Exact where the JAX package takes ``approx_max_k`` per chunk."""
-    B, O = qp.shape[0], ovf_ids.shape[0]
+    O = ovf_ids.shape[0]
     ob = O if B * O * 4 <= OVF_CHUNK_BYTES else OVF_CHUNK_ROWS
     dists, ids = [], []
     for lo in range(0, O, ob):
@@ -267,12 +279,18 @@ def _overflow_scan(qp, ovf_vecs, ovf_sq, ovf_ids, filter_mask, rr: int):
         ok = oid != NIL
         if filter_mask is not None:
             ok = ok & filter_mask[oid.clamp(0, filter_mask.shape[0] - 1).long()] & (oid < filter_mask.shape[0])
-        od = ovf_sq[None, lo : lo + ob] - 2.0 * (qp @ ovf_vecs[lo : lo + ob].T)
-        od = od.masked_fill(~ok[None, :], float("inf"))
+        od = score(lo, lo + oid.shape[0], ok)
         v, pos = torch.topk(od, min(rr, od.shape[1]), dim=1, largest=False)
         dists.append(v)
         ids.append(oid[pos.reshape(-1)].reshape(pos.shape))
     return torch.cat(dists, dim=1), torch.cat(ids, dim=1)
+
+
+def _merge_pool(dist, ids, od, oi, rr: int):
+    """Top ``rr`` of the pool (dist, ids) ∪ the overflow's (od, oi)."""
+    d_all, i_all = torch.cat([dist, od], dim=1), torch.cat([ids, oi], dim=1)
+    dist, pos = torch.topk(d_all, rr, dim=1, largest=False, sorted=True)
+    return dist, torch.gather(i_all, 1, pos)
 
 
 def _ivf_query(
@@ -298,15 +316,46 @@ def _ivf_query(
     k3_args = (qp, probe, slabs, slab_sq, slab_ids, mask_u8, rr)
     dist, ids = ivf_probe_scan(*k3_args)
     if ovf_ids.shape[0]:
-        od, oi = _overflow_scan(qp, ovf_vecs, ovf_sq, ovf_ids, filter_mask, rr)
-        d_all, i_all = torch.cat([dist, od], dim=1), torch.cat([ids, oi], dim=1)
-        dist, pos = torch.topk(d_all, rr, dim=1, largest=False, sorted=True)
-        ids = torch.gather(i_all, 1, pos)
+
+        def score(lo, hi, ok):
+            od = ovf_sq[None, lo:hi] - 2.0 * (qp @ ovf_vecs[lo:hi].T)
+            return od.masked_fill(~ok[None, :], float("inf"))
+
+        dist, ids = _merge_pool(dist, ids, *_overflow_scan(score, qp.shape[0], ovf_ids, filter_mask, rr), rr)
     # K4 takes a non-finite coarse score as an empty slot and, with dedup
     # (assignCopies > 1 stores a point in several slabs), each id once
     k4_args = (vectors, queries, ids.contiguous(), dist.contiguous(), k, metric, dedup)
     if keep is not None:
         keep.update(k3=k3_args, k4=k4_args)
+    return ivf_exact_rerank(*k4_args)
+
+
+def _ivf_query_pq(
+    centroids, cent_sq, slab_codes, slab_ids, ovf_codes, ovf_ids, table, queries, vectors,
+    filter_mask, p: int, k: int, metric: str = C.DISTANCE_EUCLIDEAN, dedup: bool = False,
+    keep: Optional[dict] = None,
+):
+    """IVF-PQ query → (dists f32[B, k], node ids i32[B, k]); empty slots
+    (inf, -1). The JAX package's ``_ivf_query_pq``: probe selection, the ADC
+    scan of the probed code slabs (K9) and of the live overflow codes (K9's
+    dense entry) into a pool of rr = max(RERANK_POOL_PQ, 2k), then K4's copy
+    dedup and exact f32 rerank. ``table`` f32[B, M, K] holds the batch's ADC
+    tables. ``keep``, when given, receives the arguments of this call's K9
+    and K4 launches (``"k9"``, ``"k4"``)."""
+    probe = _select_probes(queries, centroids, cent_sq, p)
+    rr = max(RERANK_POOL_PQ, 2 * k)
+    mask_u8 = None if filter_mask is None else filter_mask.view(torch.uint8)
+    k9_args = (table, probe, slab_codes, slab_ids, mask_u8, rr)
+    dist, ids = ivf_pq_probe_scan(*k9_args)
+    if ovf_ids.shape[0]:
+
+        def score(lo, hi, ok):
+            return pq_scan(table, ovf_codes[lo:hi], ok.view(torch.uint8))
+
+        dist, ids = _merge_pool(dist, ids, *_overflow_scan(score, table.shape[0], ovf_ids, filter_mask, rr), rr)
+    k4_args = (vectors, queries, ids.contiguous(), dist.contiguous(), k, metric, dedup)
+    if keep is not None:
+        keep.update(k9=k9_args, k4=k4_args)
     return ivf_exact_rerank(*k4_args)
 
 
@@ -319,11 +368,6 @@ class IndexIVF:
     cosine (the schema validator refuses the rest)."""
 
     def __init__(self, params: VectorIVFParams, device: torch.device):
-        q = params.quantizer
-        if q is not None and q.type == C.QUANTIZER_PRODUCT:
-            raise NotImplementedError(
-                "a product quantizer on vectorIVF (IVF-PQ) is not ported to semadb_tpu_torch yet"
-            )
         self.params = params
         self.metric = params.distance_metric
         self.device = torch.device(device)
@@ -368,6 +412,23 @@ class IndexIVF:
         self.vectors = torch.zeros((self.capacity, D), dtype=torch.float32, device=dev)
         self.refit_seconds: dict = {}  # phase → seconds of the last refit
         self.repaired_writes = 0  # written rows placed by their own probes (_within_own_probes)
+        self.refits = 0  # refits so far, bound with the arrays of each
+        # IVF-PQ: the codebook is fit once, at the quantizer's trigger; from
+        # then on slabs and overflow hold u8 codes, scored by ADC and
+        # reranked in f32. Only at D ≤ PROJ_DIM: above it the JAX package
+        # traverses the projection whatever the quantizer (ROADMAP.md, queue
+        # 1 item 4, asks the H100 to decide again)
+        self.pq_config: Optional[QuantConfig] = None
+        self.pq_codebook: Optional[torch.Tensor] = None  # f32[M, K, D/M]
+        self.slab_codes = torch.zeros((1, self.slab, 1), dtype=torch.uint8, device=dev)
+        self.ovf_codes = torch.zeros((8, 1), dtype=torch.uint8, device=dev)
+        q = params.quantizer
+        if q is not None and q.type == C.QUANTIZER_PRODUCT and D <= PROJ_DIM:
+            self.pq_config = QuantConfig.from_params(q, D, self.metric)
+
+    @property
+    def pq_active(self) -> bool:
+        return self.pq_codebook is not None
 
     # -- internals ----------------------------------------------------------
     def _sq(self, arr: torch.Tensor) -> torch.Tensor:
@@ -412,7 +473,10 @@ class IndexIVF:
             old = self.ovf_ids.shape[0]
             grow = max(old, n)
             with self._state_lock:
-                self.ovf_vecs = torch.cat([self.ovf_vecs, self.ovf_vecs.new_zeros((grow, self.tdim))])
+                if self.pq_active:
+                    self.ovf_codes = torch.cat([self.ovf_codes, self.ovf_codes.new_zeros((grow, self.ovf_codes.shape[1]))])
+                else:
+                    self.ovf_vecs = torch.cat([self.ovf_vecs, self.ovf_vecs.new_zeros((grow, self.tdim))])
                 self.ovf_ids = torch.cat([self.ovf_ids, self.ovf_ids.new_full((grow,), NIL)])
             self._ovf_free.extend(range(old, old + grow))
         return [self._ovf_free.pop() for _ in range(n)]
@@ -582,28 +646,65 @@ class IndexIVF:
             slab_ids = np.full((Cn, S), NIL, np.int32)
             slab_ids[all_cs, all_ss] = ids[all_rows]
 
-        with self._phase("slab_build_s"):
-            bf16 = Cn * S * self.tdim * 4 > SLAB_BF16_BYTES
-            slab_ids_dev = torch.from_numpy(slab_ids).to(self.device)
-            slabs, slab_sq = _slabs_from_ids(
-                self.vectors, slab_ids_dev, proj,
-                out_dtype=torch.bfloat16 if bf16 else torch.float32,
-                want_sq=self.metric == C.DISTANCE_EUCLIDEAN,
-            )
-            ovf_vecs = torch.zeros((O, self.tdim), dtype=torch.float32, device=self.device)
-            if len(spill):
-                sp_v = self.vectors[_long(ids[spill]).to(self.device)] if big else data[_long(spill).to(self.device)]
-                ovf_vecs[: len(spill)] = sp_v if proj is None else sp_v @ proj
+        slab_ids_dev = torch.from_numpy(slab_ids).to(self.device)
+        pqc = self.pq_config
+        codebook = self.pq_codebook
+        if pqc is not None and codebook is None and n >= max(pqc.trigger, MIN_FIT):
+            # Fit the codebook once, at the trigger, on a ≤64k-row stride
+            # sample (codebooks need ~256 samples a centroid, not the corpus)
+            with self._phase("pq_fit_s"):
+                stride = max(n_pad // 2**16, 1)
+                sample = self.vectors[_long(pad_ids[::stride]).to(self.device)] if big else fit_data[::stride]
+                codebook = pq_fit(
+                    sample, torch.ones((sample.shape[0],), dtype=torch.bool, device=self.device),
+                    pqc.num_subvectors, pqc.num_centroids,
+                )
+                del sample
+        if codebook is not None:
+            with self._phase("pq_encode_s"):
+                M = pqc.num_subvectors
+                codes = (
+                    pq_encode(self.vectors, codebook, M, pqc.num_centroids, self.metric, row_ids=pad_ids_dev)
+                    if big else pq_encode(data, codebook, M, pqc.num_centroids, self.metric)
+                )  # u8[n_pad, M]
+                # One gather of [C, S, M] codes through a host inverse of the ids
+                inv = np.zeros(self.capacity, np.int64)
+                inv[ids] = np.arange(n)
+                code_rows = torch.from_numpy(inv[np.clip(slab_ids, 0, self.capacity - 1)]).to(self.device)
+                slab_codes = torch.where((slab_ids_dev != NIL)[..., None], codes[code_rows], 0).to(torch.uint8)
+                ovf_codes = torch.zeros((O, M), dtype=torch.uint8, device=self.device)
+                if len(spill):
+                    ovf_codes[: len(spill)] = codes[_long(spill).to(self.device)]
+                del codes
+            # The f32 slabs and overflow rows are dead weight: placeholders
+            slabs = torch.zeros((1, S, self.tdim), dtype=torch.float32, device=self.device)
+            slab_sq = torch.zeros((1, S), dtype=torch.float32, device=self.device)
+            ovf_vecs = torch.zeros((1, self.tdim), dtype=torch.float32, device=self.device)
+        else:
+            slab_codes, ovf_codes = self.slab_codes, self.ovf_codes
+            with self._phase("slab_build_s"):
+                bf16 = Cn * S * self.tdim * 4 > SLAB_BF16_BYTES
+                slabs, slab_sq = _slabs_from_ids(
+                    self.vectors, slab_ids_dev, proj,
+                    out_dtype=torch.bfloat16 if bf16 else torch.float32,
+                    want_sq=self.metric == C.DISTANCE_EUCLIDEAN,
+                )
+                ovf_vecs = torch.zeros((O, self.tdim), dtype=torch.float32, device=self.device)
+                if len(spill):
+                    sp_v = self.vectors[_long(ids[spill]).to(self.device)] if big else data[_long(spill).to(self.device)]
+                    ovf_vecs[: len(spill)] = sp_v if proj is None else sp_v @ proj
         with self._state_lock:
             self.centroids, self._sup_cents = cents, sup
             self._proj = proj
             self.slab = S
             self.slabs, self.slab_sq, self.slab_ids = slabs, slab_sq, slab_ids_dev
             self.ovf_vecs = ovf_vecs
+            self.pq_codebook, self.slab_codes, self.ovf_codes = codebook, slab_codes, ovf_codes
             self.ovf_ids = torch.from_numpy(ovf_ids).to(self.device)
             # With the pool it describes: a search's skip test compares the two
             self._ovf_free = list(range(len(spill), O))
             self._sq_cache = {}
+            self.refits += 1
         self._fill = fill  # high-water mark incl. secondary copies
         with self._phase("loc_maps_s"):
             self._loc = dict(
@@ -821,22 +922,28 @@ class IndexIVF:
         if len(all_rows):
             node_ids = ids_np[all_rows].astype(np.int32)
             rows_dev = torch.from_numpy(node_ids).to(self.device)
-            rows_f = (
-                _gather_project(self.vectors, rows_dev, self._proj)
-                if self._proj is not None else self.vectors[rows_dev.long()]
-            )
-            self._set_cells("slabs", all_cs, all_ss, rows_f)
-            self._set_cells("slab_sq", all_cs, all_ss, self._sq(rows_f))
+            if self.pq_active:
+                self._set_cells("slab_codes", all_cs, all_ss, self._encode(rows_dev))
+            else:
+                rows_f = (
+                    _gather_project(self.vectors, rows_dev, self._proj)
+                    if self._proj is not None else self.vectors[rows_dev.long()]
+                )
+                self._set_cells("slabs", all_cs, all_ss, rows_f)
+                self._set_cells("slab_sq", all_cs, all_ss, self._sq(rows_f))
             # slab_ids LAST: the id write makes a slot visible to searches
             self._set_cells("slab_ids", all_cs, all_ss, rows_dev)
         if len(ovf_rows):
             slots = np.array(self._ovf_slots(len(ovf_rows)), np.int32)
             o_ids = torch.from_numpy(ids_np[ovf_rows].astype(np.int32)).to(self.device)
-            ov = (
-                _gather_project(self.vectors, o_ids, self._proj)
-                if self._proj is not None else self.vectors[o_ids.long()]
-            )
-            self._set_rows("ovf_vecs", slots, ov)
+            if self.pq_active:
+                self._set_rows("ovf_codes", slots, self._encode(o_ids))
+            else:
+                ov = (
+                    _gather_project(self.vectors, o_ids, self._proj)
+                    if self._proj is not None else self.vectors[o_ids.long()]
+                )
+                self._set_rows("ovf_vecs", slots, ov)
             self._set_rows("ovf_ids", slots, o_ids)
             for r, j in zip(ovf_rows, slots):
                 self._loc[int(ids_np[r])] = ("o", int(j))
@@ -847,6 +954,20 @@ class IndexIVF:
             else:
                 for r, c, sl in zip(placed, pcl, psl):
                     self._loc2.setdefault(int(ids_np[r]), []).append((int(c), int(sl)))
+
+    def _encode(self, node_ids: torch.Tensor) -> torch.Tensor:
+        """PQ codes u8[n, M] of the ``vectors`` rows ``node_ids``."""
+        pqc = self.pq_config
+        return pq_encode(
+            self.vectors, self.pq_codebook, pqc.num_subvectors, pqc.num_centroids, self.metric, row_ids=node_ids
+        )
+
+    def _rebind_centroids(self, centroids: torch.Tensor) -> None:
+        """Replace the centroids (same shape) and drop what was cached from
+        them, in one hold of ``_state_lock``."""
+        with self._state_lock:
+            self.centroids = centroids
+            self._sq_cache = {}
 
     def flush_pending(self) -> None:
         """Run the refit a ``defer_fit`` bulk insert postponed (also when
@@ -876,8 +997,8 @@ class IndexIVF:
                            keep: Optional[dict] = None):
         """Enqueue one batch → (dists f32[B, k], ids i32[B, k]) tensors on
         the index's device, not waited for. ``keep``: see :func:`_ivf_query`
-        (not filled on the selective-filter path, which runs neither K3 nor
-        K4)."""
+        and :func:`_ivf_query_pq` (not filled on the selective-filter path,
+        which runs none of K3, K4 and K9)."""
         if isinstance(queries, torch.Tensor):
             q = queries.to(self.device, torch.float32).reshape(-1, self.params.vector_size).contiguous()
         else:
@@ -898,9 +1019,23 @@ class IndexIVF:
                 full = np.zeros(self.capacity, bool)
                 full[: min(len(fm_np), self.capacity)] = fm_np[: self.capacity]
                 fm = torch.from_numpy(full).to(self.device)
-            ov, ov_ids = self.ovf_vecs, self.ovf_ids
-            if ov_ids.shape[0] == len(self._ovf_free):
-                # no live overflow row: nothing to scan
+            ov_ids = self.ovf_ids
+            live_ovf = ov_ids.shape[0] != len(self._ovf_free)  # else nothing to scan
+            if self.pq_active:
+                if self._proj is None:
+                    cent, csq = cent_p, cent_sq
+                else:  # D ≤ PROJ_DIM with a smaller proj_dim: probe in the full space
+                    cent, csq = self.centroids, self._sq(self.centroids)
+                pqc = self.pq_config
+                table = pq_query_table(q, self.pq_codebook, pqc.num_subvectors, pqc.num_centroids, self.metric)
+                return _ivf_query_pq(
+                    cent, csq, self.slab_codes, self.slab_ids,
+                    self.ovf_codes if live_ovf else self.ovf_codes[:0], ov_ids if live_ovf else ov_ids[:0],
+                    table, q, self.vectors, fm, p, k, self.metric,
+                    dedup=self.params.assign_copies > 1, keep=keep,
+                )
+            ov = self.ovf_vecs
+            if not live_ovf:
                 ov, ov_ids = ov[:0], ov_ids[:0]
             key = ("ovf", ov.shape[0])
             if key not in cache:
@@ -977,6 +1112,13 @@ class IndexIVF:
             out["proj"] = self._proj
         if self._sup_cents is not None:
             out["sup_cents"] = self._sup_cents
+        if self.pq_active:
+            # The codes are the mass and cannot be rebuilt from the vectors
+            # cheaply: persisted, with the placeholders beside them
+            out.update(
+                slabs=self.slabs, slab_sq=self.slab_sq, ovf_vecs=self.ovf_vecs,
+                pq_codebook=self.pq_codebook, slab_codes=self.slab_codes, ovf_codes=self.ovf_codes,
+            )
         return out
 
     def snapshot_row_bounds(self) -> dict:
@@ -989,8 +1131,6 @@ class IndexIVF:
         """Load what either package's ``to_arrays`` (or a snapshot) holds;
         slabs, norms and overflow rows are rebuilt from ``vectors`` with the
         gather a refit uses, unless the arrays carry them."""
-        if "pq_codebook" in arrays:
-            raise NotImplementedError("these IVF arrays hold IVF-PQ codes, which semadb_tpu_torch does not port yet")
         idx = cls(params, device)
         dev = idx.device
         D = params.vector_size
@@ -1034,6 +1174,18 @@ class IndexIVF:
             if idx._proj is not None:
                 ovf_rows = ovf_rows @ idx._proj
             idx.ovf_vecs = torch.where((idx.ovf_ids != NIL)[:, None], ovf_rows, torch.zeros((), device=dev))
+        if "pq_codebook" in arrays:
+            if idx.pq_config is None:
+                # A snapshot that encoded PQ above PROJ_DIM (where ADC is now
+                # off at construction): the config from the params keeps its
+                # codes readable
+                q = params.quantizer
+                if q is None or q.type != C.QUANTIZER_PRODUCT:
+                    raise ValueError("the arrays hold PQ codes but the params carry no product quantizer")
+                idx.pq_config = QuantConfig.from_params(q, D, idx.metric)
+            idx.pq_codebook = host_tensor(arrays["pq_codebook"], np.float32).to(dev)
+            idx.slab_codes = host_tensor(arrays["slab_codes"], np.uint8).to(dev)
+            idx.ovf_codes = host_tensor(arrays["ovf_codes"], np.uint8).to(dev)
         # Host mirrors. _fill is a high-water mark (deletes blank slots in
         # place): last occupied slot + 1, not a count of live slots
         slab_ids = np.asarray(arrays["slab_ids"])

@@ -1,11 +1,11 @@
 """Index manager: schema-driven dispatch of point changes + query execution.
 
 Port of ``semadb_tpu/index/manager.py`` for the index types the port has:
-the vector engines ``vectorFlat`` and ``vectorIVF`` on the device, and the
-host indices ``text``, ``string``, ``integer``, ``float`` and
-``stringArray`` (inverted postings and TF-IDF text over the store). A schema
-naming any other index type (``vectorVamana``, ``vectorFused``), or a product
-quantizer, is refused with a ``ValidationError`` that names it
+the vector engines ``vectorFlat`` and ``vectorIVF`` (each with or without a
+product quantizer) and ``vectorFused`` on the device, and the host indices
+``text``, ``string``, ``integer``, ``float`` and ``stringArray`` (inverted
+postings and TF-IDF text over the store). A schema naming ``vectorVamana``,
+which is not ported yet, is refused with a ``ValidationError`` that names it
 (:func:`check_supported`, called where a collection is created and where a
 shard is opened).
 
@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from semadb_tpu_torch.index.flat import IndexFlat
+from semadb_tpu_torch.index.fused import FusedHybridIVF
 from semadb_tpu_torch.index.inverted import IndexInverted, IndexInvertedArray, PostingsCache
 from semadb_tpu_torch.index.ivf import IndexIVF
 from semadb_tpu_torch.index.text import IndexText, TextCaches, _doc_codec, _postings_codec
@@ -42,7 +43,6 @@ from semadb_tpu_torch.models.schema import IndexSchema
 from semadb_tpu_torch.shard import pointstore
 from semadb_tpu_torch.store.diskstore import BucketManager
 from semadb_tpu_torch.utils.itemcache import ItemCache
-from semadb_tpu_torch.vectorstore import PRODUCT, QuantConfig
 
 OP_INSERT = "insert"
 OP_UPDATE = "update"
@@ -50,11 +50,12 @@ OP_DELETE = "delete"
 OP_SKIP = "skip"
 
 # The engine that serves each vector index type: the attribute that holds
-# its parameters in the schema entry and its options in a query, and the
-# device index class
+# its parameters in the schema entry and its options in a query, and what
+# makes the device index from (parameters, device)
 _ENGINES = {
     C.INDEX_TYPE_VECTOR_FLAT: ("vector_flat", IndexFlat),
     C.INDEX_TYPE_VECTOR_IVF: ("vector_ivf", IndexIVF),
+    C.INDEX_TYPE_VECTOR_FUSED: ("vector_fused", FusedHybridIVF.from_params),
 }
 VECTOR_INDEX_TYPES = tuple(_ENGINES)
 # The host index types (no device state): the attribute of a query that
@@ -79,13 +80,6 @@ def check_supported(schema: IndexSchema) -> None:
             raise ValidationError(
                 f"index type {params.type} (property {prop}) is not supported by "
                 f"semadb_tpu_torch yet; supported: {', '.join(SUPPORTED_INDEX_TYPES)}"
-            )
-        p = _vector_params(params)
-        cfg = QuantConfig.from_params(p.quantizer, p.vector_size, p.distance_metric)
-        if cfg.kind == PRODUCT:
-            raise ValidationError(
-                f"product quantizer on {params.type} (property {prop}) is not supported by "
-                "semadb_tpu_torch yet"
             )
 
 
@@ -145,7 +139,7 @@ class IndexManager:
     ):
         self.bm = bm
         self.schema = schema
-        self.devices = device_registry  # bucket_name → IndexFlat | IndexIVF
+        self.devices = device_registry  # bucket_name → IndexFlat | IndexIVF | FusedHybridIVF
         self.device = torch.device(device)
         # bucket_name → PostingsCache | TextCaches: decoded postings owned by
         # the Shard, which outlive this per-transaction manager
@@ -215,10 +209,19 @@ class IndexManager:
                 self._dispatch_host(prop, params, items)
                 continue
             idx = self._device_index(prop, params, register=True)
-            delta = [
-                (nid, np.asarray(cur, np.float32) if op != OP_DELETE else None)
-                for nid, _, cur, op in items
-            ]
+            if params.type == C.INDEX_TYPE_VECTOR_FUSED:
+                # Wire format: the views concatenated into one flat f32 row
+                # (journal-compatible; fused.py _split_flat)
+                delta = [
+                    (nid, np.concatenate([np.asarray(v, np.float32).reshape(-1) for v in cur])
+                     if op != OP_DELETE else None)
+                    for nid, _, cur, op in items
+                ]
+            else:
+                delta = [
+                    (nid, np.asarray(cur, np.float32) if op != OP_DELETE else None)
+                    for nid, _, cur, op in items
+                ]
             idx.insert_update_delete(delta)
             device_deltas[self.bucket_name(params.type, prop)] = delta
         return device_deltas
@@ -259,9 +262,7 @@ class IndexManager:
         if opts.filter is not None:
             filter_set, _ = self.search(opts.filter)
         idx = self._device_index(q.property, params)
-        d, i = self._index_search(
-            idx, opts, np.asarray(opts.vector, np.float32)[None, :], filter_set
-        )
+        d, i = self._index_search(idx, opts, [opts], filter_set)
         w = opts.weight if opts.weight is not None else 1.0
         rset: Set[int] = set()
         results: List[SearchResult] = []
@@ -291,11 +292,20 @@ class IndexManager:
             return idx.search(opts.value, opts.operator), []
         return idx.search(opts.value, opts.end_value, opts.operator), []
 
-    def _index_search(self, idx, opts, vecs: np.ndarray, filter_set: Optional[Set[int]]):
-        """One search call on a vector index (the flat index ignores the
-        probe count)."""
+    def _index_search(self, idx, opts, opts_list: list, filter_set: Optional[Set[int]]):
+        """One search call on a vector index for the queries of
+        ``opts_list``, with the shared options ``opts`` (the flat index
+        ignores the probe count; a fused index takes one batch a view and
+        the per-view weights)."""
         fm = self._filter_mask(idx, filter_set)
         probes = getattr(opts, "num_probes", 0)
+        if isinstance(idx, FusedHybridIVF):
+            qviews = [
+                np.stack([np.asarray(o.vectors[v], np.float32) for o in opts_list])
+                for v in range(len(opts.vectors))
+            ]
+            return idx.search_batch(qviews, opts.limit, weights=opts.weights, num_probes=probes, filter_mask=fm)
+        vecs = np.stack([np.asarray(o.vector, np.float32) for o in opts_list])
         return idx.search_batch(vecs, k=opts.limit, num_probes=probes, filter_mask=fm)
 
     @staticmethod
@@ -340,8 +350,7 @@ class IndexManager:
         if o0.filter is not None:
             filter_set, _ = self.search(o0.filter)
         idx = self._device_index(prop, params)
-        vecs = np.stack([np.asarray(o.vector, np.float32) for o in opts_list])
-        d, i = self._index_search(idx, o0, vecs, filter_set)
+        d, i = self._index_search(idx, o0, opts_list, filter_set)
         valid = (i >= 0) & np.isfinite(d)
         w = o0.weight if o0.weight is not None else 1.0
         return d, i, valid, w
@@ -366,6 +375,7 @@ class IndexManager:
                 and o.weight == o0.weight
                 and _filters_equal(o.filter, o0.filter)
                 and getattr(o, "num_probes", 0) == getattr(o0, "num_probes", 0)
+                and getattr(o, "weights", None) == getattr(o0, "weights", None)
             ):
                 return None
             opts_list.append(o)

@@ -17,13 +17,18 @@ import torch
 
 _ARRAYS = (
     "vectors", "exists", "centroids", "slabs", "slab_sq", "slab_ids", "ovf_vecs", "ovf_ids",
+    "slab_codes", "ovf_codes",
 )
 
 
 def index_nbytes(idx) -> int:
     """Device bytes held by an index: a flat index's vectors, live mask and
-    vector store, an IVF index's vectors, centroids, slabs and overflow
-    (``Tensor.nbytes``, no transfers)."""
+    vector store, an IVF index's vectors, centroids, slabs (or PQ codes) and
+    overflow, a fused index's inner IVF index (``Tensor.nbytes``, no
+    transfers)."""
+    inner = getattr(idx, "index", None)
+    if inner is not None:  # FusedHybridIVF wraps an IndexIVF
+        idx = inner
     total = 0
     for name in _ARRAYS:
         arr = getattr(idx, name, None)

@@ -1,9 +1,9 @@
 """Shard: the per-shard storage + index engine.
 
 Port of ``semadb_tpu/shard/shard.py`` over the port's engines
-(``vectorFlat`` and ``vectorIVF`` on an explicit torch device, and the text
-and inverted indices on the host); the journal and snapshot formats are the
-JAX package's, so its shard files open here.
+(``vectorFlat``, ``vectorIVF`` and ``vectorFused`` on an explicit torch
+device, and the text and inverted indices on the host); the journal and
+snapshot formats are the JAX package's, so its shard files open here.
 
 Parity reference: shard/shard.go — CRUD over points inside one store
 transaction with index dispatch, update-merge semantics with the
@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from semadb_tpu_torch.index.flat import IndexFlat
+from semadb_tpu_torch.index.fused import FusedHybridIVF
 from semadb_tpu_torch.index.ivf import IndexIVF
 from semadb_tpu_torch.index.manager import (
     VECTOR_INDEX_TYPES,
@@ -136,6 +137,11 @@ class Shard:
             idx = (
                 IndexIVF(params.vector_ivf, self.device) if arrays is None
                 else IndexIVF.from_arrays(params.vector_ivf, arrays, self.device)
+            )
+        elif params.type == C.INDEX_TYPE_VECTOR_FUSED:
+            idx = (
+                FusedHybridIVF.from_params(params.vector_fused, self.device) if arrays is None
+                else FusedHybridIVF.from_arrays(arrays, params.vector_fused, self.device)
             )
         elif arrays is None:
             idx = IndexFlat(params.vector_flat, self.device)

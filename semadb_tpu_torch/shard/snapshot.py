@@ -18,7 +18,9 @@ The engine hands over tensors (``device_arrays``, read under its
 ``_write_lock`` when it has one); their dtype names in the meta are numpy's,
 so a uint32 view of the codes is recorded as ``uint32`` as the JAX package
 records it. The IVF index hands over no slabs: they are derived state, which
-its ``from_arrays`` rebuilds from ``vectors``.
+its ``from_arrays`` rebuilds from ``vectors``; an IVF-PQ index hands over its
+u8 ``slab_codes`` and ``ovf_codes`` and its ``pq_codebook`` (with the shrunk
+f32 placeholders), as the JAX package's does.
 
 Invariants:
   - the store write txn is atomic (overlay rollback), so a crashed flush

@@ -7,8 +7,13 @@ build (``insert_bulk(defer_fit=True)`` → ``flush_pending``), a warm-up batch,
 best-of-3 pipelined query passes (batches dispatched through
 ``utils.pipeline.AsyncDispatcher``, up to 8 in flight), recall@10, epsilon
 recall and the dataset's margin; ``--sweep`` adds operating points (probe
-counts) on the same build, as ``BENCH_SWEEP`` does. The Vamana engine is not
-ported yet.
+counts) on the same build, as ``BENCH_SWEEP`` does. ``--quantizer product``
+is ``BENCH_MODE=ivfpq`` (IVF-PQ, M = max(D // 16, 4) subvectors of 256
+centroids, fit at 10,000 points, as ``bench.py:_quantizer``), and
+``--fused`` is ``BENCH_MODE=fused`` (``bench.py:_run_fused``: the fused
+two-view engine over ``embedding_like_views``, below, with 4 copies unless
+``--copies`` says otherwise; it refuses the options it has no use for). The
+Vamana engine is not ported yet.
 
 Usage (the defaults are ``bench.py``'s: 1,000,000 x 128, 32,768 queries in
 batches of 4,096, spread 0.5, euclidean, assignCopies 2, k = 10):
@@ -21,7 +26,8 @@ build then adopts the corpus tensor and the margin reads rows on the device.
 Eps-recall reads the index's own copy of the corpus on every path.
 
 It prints one JSON line: ``qps``, ``recall@10``, ``build_s`` and its split
-(upload, k-means and its two-level steps, packing, slab build, host maps),
+(upload, k-means and its two-level steps, packing, slab build or the PQ
+codebook fit and encode, host maps),
 ``peak_mem_gib``, the device and, on a CUDA device, the card's name and
 power limit and one ``torch.profiler`` pass over one batch (device time by
 kernel and op and by stage, busy share, launches).
@@ -41,6 +47,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from semadb_tpu_torch.models.quantizer import ProductQuantizerParams, Quantizer
 from semadb_tpu_torch.models.schema import VectorIVFParams
 from semadb_tpu_torch.tools.datasets import (
     AnnDataset,
@@ -48,6 +55,7 @@ from semadb_tpu_torch.tools.datasets import (
     compute_ground_truth_device,
     embedding_like,
     embedding_like_device,
+    embedding_like_views,
 )
 from semadb_tpu_torch.utils.pipeline import AsyncDispatcher
 
@@ -57,14 +65,15 @@ class AnnBench:
     with ``engine="ivf"``)."""
 
     def __init__(self, dim: int, device, metric: str = "euclidean", engine: str = "ivf",
-                 assign_copies: int = 2):
+                 assign_copies: int = 2, quantizer: Optional[Quantizer] = None):
         if engine != "ivf":
             raise NotImplementedError(f"engine {engine!r}: the Vamana engine is not ported to semadb_tpu_torch yet")
         from semadb_tpu_torch.index.ivf import IndexIVF
 
         self.device = torch.device(device)
         self.index = IndexIVF(
-            VectorIVFParams(vector_size=dim, distance_metric=metric, assign_copies=assign_copies),
+            VectorIVFParams(vector_size=dim, distance_metric=metric, assign_copies=assign_copies,
+                            quantizer=quantizer),
             self.device,
         )
 
@@ -101,15 +110,17 @@ class AnnBench:
 
 PRIME_KERNEL = "spin_kernel"  # the kernel torch.cuda._sleep launches
 PRIME_LAUNCHES = 4
+PRIME_CYCLES = 5_000_000  # a spin kernel's clock cycles, ~2.5 ms on the H100
 
 
 def prime_profiler() -> None:
-    """Open a profiler window with untimed spin kernels of ~50 µs each and
+    """Open a profiler window with untimed spin kernels of ~2.5 ms each and
     wait for them: in a process that has profiled before, the profiler can
-    miss the first device events of a window (measured on the H100: the
-    first two or three). Callers leave ``PRIME_KERNEL`` out of their sums."""
+    miss the first device events of a window (measured on the H100: from one
+    to 39 of them, up to about a millisecond of launches past a prime of
+    4 x 50 µs). Callers leave ``PRIME_KERNEL`` out of their sums."""
     for _ in range(PRIME_LAUNCHES):
-        torch.cuda._sleep(100_000)
+        torch.cuda._sleep(PRIME_CYCLES)
     torch.cuda.synchronize()
 
 
@@ -119,9 +130,12 @@ def prime_profiler() -> None:
 # scan would count under probe_topk (the cells have no overflow rows). The
 # probe scores' −2× and + |c|² passes are elementwise kernels; the chunked
 # probe selection (C·B past PROBE_CHUNK_BYTES) adds each chunk's id offset,
-# concatenates the chunks' top-p and gathers the winners. Anything else is
-# "other", listed by name in the profile.
+# concatenates the chunks' top-p and gathers the winners. IVF-PQ's ADC tables
+# are a batched product and elementwise passes, so they count under
+# probe_gemm and probe_scale_shift. Anything else is "other", listed by name
+# in the profile.
 STAGES = (
+    ("k9_adc_scan", ("pq_probe_scan_kernel", "pq_scan_dense_kernel")),
     ("k3_probed_slab_scan", ("ivf_scan_", "Memset")),
     ("k4_dedup_rerank", ("rerank_kernel",)),
     ("probe_gemm", ("gemm",)),
@@ -148,7 +162,7 @@ def profile_batch(index, queries: np.ndarray, k: int, num_probes: int = 0) -> di
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prime_profiler()
         t0 = time.perf_counter()
-        index.search_batch_async(queries, k, num_probes)
+        index.search_batch_async(queries, k, num_probes=num_probes)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -283,7 +297,7 @@ def run(
         "margin": margin,
         "clusters": int(idx.centroids.shape[0]),
         "slab": int(idx.slab),
-        "slab_dtype": str(idx.slabs.dtype).replace("torch.", ""),
+        "slab_dtype": "u8 PQ codes" if idx.pq_active else str(idx.slabs.dtype).replace("torch.", ""),
         "two_level": idx._sup_cents is not None,
         "probes": probes,
         "sweep": sweep_rows,
@@ -291,6 +305,9 @@ def run(
         "generator": "device" if on_device else "host",
         "device": str(device),
     }
+    if idx.pq_config is not None:
+        out["pq"] = {"m": idx.pq_config.num_subvectors, "k": idx.pq_config.num_centroids,
+                     "trigger": idx.pq_config.trigger, "active": idx.pq_active}
     if device.type == "cuda":
         out["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
         out["resident_gib"] = torch.cuda.memory_allocated(device) / 2**30
@@ -302,6 +319,105 @@ def run(
     return out
 
 
+FUSED_WEIGHTS = (0.7, 0.3)
+FUSED_COPIES = 4  # bench.py's BENCH_FUSED_COPIES default
+FUSED_GT_CHUNK = 512  # queries a step of the fused ground truth
+# Options of the IVF bench that the fused mode does not take
+FUSED_REFUSES = ("quantizer", "sweep", "spread", "metric")
+# bench.py:_quantizer's product quantizer (M = max(D // 16, 4) subvectors)
+PQ_CENTROIDS = 256
+PQ_TRIGGER = 10_000
+
+
+def fused_ground_truth(train, test, weights, k: int, device) -> np.ndarray:
+    """Exact top-k of the weighted sum of the views' squared euclidean
+    distances (``bench.py:_run_fused``'s ground truth), on ``device``, f32 →
+    train rows i64[Q, k]."""
+    xs = [torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in train]
+    sqs = [(x * x).sum(-1) for x in xs]
+    out = np.empty((len(test[0]), k), np.int64)
+    for lo in range(0, len(test[0]), FUSED_GT_CHUNK):
+        total = None
+        for w, x, sq, q in zip(weights, xs, sqs, test):
+            qd = torch.from_numpy(np.ascontiguousarray(q[lo : lo + FUSED_GT_CHUNK])).to(device)
+            d = w * (sq[None, :] - 2.0 * (qd @ x.T))
+            total = d if total is None else total + d
+        out[lo : lo + FUSED_GT_CHUNK] = torch.topk(total, k, dim=1, largest=False).indices.cpu().numpy()
+    return out
+
+
+def run_fused(n: int, dim: int, n_queries: int, k: int = 10, batch: int = 4096, copies: int = FUSED_COPIES,
+              num_probes: int = 0, device="cuda", profile: bool = False, keep: Optional[dict] = None,
+              seed: int = 42) -> dict:
+    """``BENCH_MODE=fused`` on the port: two views of ``dim`` and
+    max(dim // 2, 16) from ``embedding_like_views(seed=42)``, euclidean,
+    weights 0.7 and 0.3, ``copies`` copies a point, automatic clusters and
+    probes, one ``insert_bulk``; recall@10 against the exact combined-score
+    ground truth over every query; QPS best of 3 pipelined passes. ``keep``
+    receives the ``index`` and the query ``views``."""
+    from semadb_tpu_torch.index.fused import FusedHybridIVF
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    d2 = max(dim // 2, 16)
+    t0 = time.perf_counter()
+    ds1, ds2 = embedding_like_views(n, [dim, d2], n_queries, seed=seed)
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gt = fused_ground_truth([ds1.train, ds2.train], [ds1.test, ds2.test], FUSED_WEIGHTS, k, device)
+    gt_s = time.perf_counter() - t0
+    idx = FusedHybridIVF([dim, d2], ["euclidean", "euclidean"], list(FUSED_WEIGHTS), assign_copies=copies,
+                         device=device)
+    t0 = time.perf_counter()
+    idx.insert_bulk(np.arange(2, n + 2, dtype=np.int32), [ds1.train, ds2.train])
+    idx.sync()
+    build_s = time.perf_counter() - t0
+    ds1.train = ds2.train = None
+    views = [ds1.test, ds2.test]
+
+    def query_all():
+        out = np.empty((n_queries, k), np.int64)
+        t1 = time.perf_counter()
+        pipe = AsyncDispatcher(depth=8)
+        for i in range(0, n_queries, batch):
+            pipe.submit(idx.search_batch_async, [v[i : i + batch] for v in views], k, None, num_probes)
+        for j, (_, ids) in enumerate(pipe.results()):
+            out[j * batch : j * batch + len(ids)] = ids - 2  # node id → train row
+        return out, time.perf_counter() - t1
+
+    query_all()  # warm-up
+    walls = []
+    best = None
+    for _ in range(3):
+        got, wall = query_all()
+        walls.append(wall)
+        if best is None or wall < best[1]:
+            best = (got, wall)
+    got, wall = best
+    recall = float(np.mean([len(set(got[i]) & set(gt[i])) / k for i in range(n_queries)]))
+    inner = idx.index
+    out = {
+        "dataset": f"embedding-views-{n}x{dim}+{d2}", "n": n, "queries": n_queries, "batch": batch,
+        "recall@10": recall, "qps": n_queries / wall, "qps_spread": sorted(n_queries / w for w in walls),
+        "build_s": build_s, "build_split_s": dict(inner.refit_seconds), "ground_truth_s": gt_s, "data_s": data_s,
+        "aug_dim": idx.aug_dim, "copies": copies, "weights": list(FUSED_WEIGHTS),
+        "clusters": int(inner.centroids.shape[0]), "slab": int(inner.slab),
+        "slab_dtype": str(inner.slabs.dtype).replace("torch.", ""), "projected": inner._proj is not None,
+        "probes": inner._num_probes(num_probes), "device": str(device),
+        "overflow_rows": int(inner.ovf_ids.shape[0] - len(inner._ovf_free)),
+    }
+    if device.type == "cuda":
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+        out["resident_gib"] = torch.cuda.memory_allocated(device) / 2**30
+        out["card"] = card()
+        if profile:
+            out["profile"] = profile_batch(idx, [v[:batch] for v in views], k, num_probes)
+    if keep is not None:
+        keep.update(index=idx, views=views, ground_truth=gt)
+    return out
+
+
 def main(argv=None, keep: Optional[dict] = None) -> int:
     ap = argparse.ArgumentParser(description="ann-benchmarks-style run of the port's IVF index")
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -310,16 +426,34 @@ def main(argv=None, keep: Optional[dict] = None) -> int:
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--spread", type=float, default=0.5)
     ap.add_argument("--metric", default="euclidean", choices=["euclidean", "cosine"])
-    ap.add_argument("--copies", type=int, default=2)
+    ap.add_argument("--copies", type=int, default=None,
+                    help=f"assignCopies; default 2, and {FUSED_COPIES} with --fused")
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--probes", type=int, default=0, help="0 = the engine's default")
     ap.add_argument("--sweep", default="", help="comma-separated probe counts, each run on the same build")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--quantizer", default="none", choices=["none", "product"],
+                    help="product: IVF-PQ (bench.py's BENCH_MODE=ivfpq)")
+    ap.add_argument("--fused", action="store_true",
+                    help="bench.py's BENCH_MODE=fused: two views (dim, max(dim // 2, 16)), the fused engine")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("annbench: --device cuda needs a CUDA device (pass --device cpu to run the plain versions)")
+    if args.fused:
+        taken = [name for name in FUSED_REFUSES if getattr(args, name) != ap.get_default(name)]
+        if taken:
+            ap.error(f"--fused takes none of {', '.join('--' + name for name in taken)}")
+        out = run_fused(args.n, args.dim, args.queries, k=args.k, batch=args.batch,
+                        copies=FUSED_COPIES if args.copies is None else args.copies, num_probes=args.probes,
+                        device=device, profile=device.type == "cuda", keep=keep, seed=args.seed)
+        print(json.dumps(out))
+        return 0
+    quantizer = None
+    if args.quantizer == "product":
+        quantizer = Quantizer(type="product", product=ProductQuantizerParams(
+            num_centroids=PQ_CENTROIDS, num_subvectors=max(args.dim // 16, 4), trigger_threshold=PQ_TRIGGER))
     # bench.py's switch: the host generator takes minutes past 2^28 values
     on_card = args.n * args.dim >= 2**28 and device.type == "cuda"
     make = functools.partial(embedding_like_device, device=device) if on_card else embedding_like
@@ -330,7 +464,8 @@ def main(argv=None, keep: Optional[dict] = None) -> int:
     data_s = time.perf_counter() - t0
     out = run(
         ds, k=args.k, batch=args.batch, num_probes=args.probes, device=device,
-        profile=device.type == "cuda", keep=keep, assign_copies=args.copies,
+        profile=device.type == "cuda", keep=keep, assign_copies=2 if args.copies is None else args.copies,
+        quantizer=quantizer,
         sweep=[int(p) for p in args.sweep.split(",") if p],
     )
     out["data_s"] = data_s

@@ -1,8 +1,9 @@
 """Datasets for the port's benchmarks.
 
 Copies of ``semadb_tpu/tools/datasets.py``'s host generators and exact
-ground truth (``AnnDataset``, ``embedding_like``, ``compute_ground_truth``;
-numpy, so one seed gives bit-identical data in both packages), plus
+ground truth (``AnnDataset``, ``embedding_like``, ``embedding_like_views``,
+``compute_ground_truth``; numpy, so one seed gives bit-identical data in both
+packages), plus
 :func:`compute_ground_truth_device` and :func:`embedding_like_device` in
 torch. The device generator draws the host generator's mixture from a
 ``torch.Generator`` on the device: JAX's random numbers cannot be
@@ -95,6 +96,50 @@ def embedding_like(
     return AnnDataset(
         name=f"embedding-like-{n}x{dim}", metric=metric, train=train, test=test
     )
+
+
+def embedding_like_views(
+    n: int,
+    dims: list[int],
+    n_queries: int,
+    latent: int = 64,
+    cluster_size: int = 100,
+    spread: float = 0.9,
+    ambient: float = 0.25,
+    seed: int = 42,
+) -> list[AnnDataset]:
+    """Multiple correlated views of the same corpus (dual-vector hybrid
+    collections: e.g. an image embedding and a text embedding of the same
+    document). All views share the latent sample; each has its own
+    orthonormal embedding map and ambient noise — the realistic regime
+    where per-index top candidates overlap and hybrid fusion works."""
+    rng = np.random.default_rng(seed)
+    latent = min([latent, *dims])
+    n_clusters = max(n // cluster_size, 2)
+    centers = rng.standard_normal((n_clusters, latent), dtype=np.float32)
+    r_tr = np.random.default_rng(seed + 1)
+    r_te = np.random.default_rng(seed + 2)
+    z_tr = centers[r_tr.integers(0, n_clusters, n)] + spread * r_tr.standard_normal(
+        (n, latent)
+    ).astype(np.float32)
+    z_te = centers[r_te.integers(0, n_clusters, n_queries)] + spread * r_te.standard_normal(
+        (n_queries, latent)
+    ).astype(np.float32)
+    out = []
+    for vi, dim in enumerate(dims):
+        a = rng.standard_normal((dim, latent), dtype=np.float32)
+        emb, _ = np.linalg.qr(a)
+        emb = emb.astype(np.float32)
+        rv = np.random.default_rng(seed + 100 + vi)
+        train = (z_tr @ emb.T + ambient * rv.standard_normal((n, dim))).astype(np.float32)
+        test = (z_te @ emb.T + ambient * rv.standard_normal((n_queries, dim))).astype(np.float32)
+        out.append(
+            AnnDataset(
+                name=f"embedding-view{vi}-{n}x{dim}", metric="euclidean",
+                train=train, test=test,
+            )
+        )
+    return out
 
 
 def compute_ground_truth(ds: AnnDataset, k: int, block: int = 256) -> np.ndarray:

@@ -26,8 +26,14 @@ init over the members a group holds (``min(cnt, maxm)``); the JAX version
 strides over ``cnt`` and, for a group ``_group_rows`` subsampled, reads
 past the gathered members, where ``take_along_axis`` fills NaN.
 
-Not ported: ``kmeans_fit`` and ``kmeans_fit_subvectors`` (product
-quantization).
+The product quantizer's per-subvector fit (``:25-117``):
+:func:`_init_furthest` (furthest-point init), :func:`kmeans_fit` (Lloyd's
+until no label changes) and :func:`kmeans_fit_subvectors` (M independent fits
+batched into one [M, N, K] problem, in groups of subvectors past 2^26
+distances, where the JAX version switches from ``vmap`` to ``lax.map``). The
+first centroid of subvector m is drawn by a ``torch.Generator`` seeded with
+``seed + m`` (the JAX version's per-subvector key), so codebooks match the
+JAX package's in quality, not in bits.
 """
 
 from __future__ import annotations
@@ -36,6 +42,87 @@ from contextlib import nullcontext
 from typing import Callable, Optional
 
 import torch
+
+
+def _init_furthest(data: torch.Tensor, k: int, seeds) -> torch.Tensor:
+    """Furthest-point init of each of G fits at once: ``data`` f32[G, N, d],
+    ``seeds`` one int a fit → f32[G, k, d]. The first centroid is a row drawn
+    from the fit's seed; each next is the row furthest from all chosen so
+    far (a chosen row is never picked again)."""
+    G, n, d = data.shape
+    dev = data.device
+    first = torch.tensor(
+        [int(torch.randint(n, (1,), generator=torch.Generator().manual_seed(int(s)))) for s in seeds],
+        device=dev,
+    )
+    g = torch.arange(G, device=dev)
+    cents = torch.zeros((G, k, d), dtype=data.dtype, device=dev)
+    cents[:, 0] = data[g, first]
+    min_d = torch.full((G, n), float("inf"), device=dev)
+    min_d[g, first] = float("-inf")
+    for i in range(1, k):
+        dist = ((data - cents[:, i - 1, None, :]) ** 2).sum(-1)
+        min_d = torch.minimum(min_d, dist)
+        nxt = torch.argmax(min_d, dim=1)
+        cents[:, i] = data[g, nxt]
+        min_d[g, nxt] = float("-inf")
+    return cents
+
+
+def _kmeans_fit_batched(data: torch.Tensor, k: int, seeds, max_iter: int):
+    """G independent Lloyd's fits over ``data`` f32[G, N, d] → (centroids
+    f32[G, k, d], labels i64[G, N]). A fit stops after the first step that
+    changes none of its labels, or after ``max_iter`` steps; an empty
+    cluster keeps its centroid."""
+    G, n, d = data.shape
+    dev = data.device
+    cents = _init_furthest(data, k, seeds)
+    sq_data = (data * data).sum(-1, keepdim=True)  # [G, N, 1]
+    labels = torch.full((G, n), -1, dtype=torch.long, device=dev)
+    active = torch.ones(G, dtype=torch.bool, device=dev)
+    base = (torch.arange(G, device=dev) * k)[:, None]
+    flat = data.reshape(G * n, d)
+    for _ in range(max_iter):
+        sq_c = (cents * cents).sum(-1)[:, None, :]  # [G, 1, k]
+        new = torch.argmin(sq_data - 2.0 * torch.bmm(data, cents.transpose(1, 2)) + sq_c, dim=-1)
+        changed = (new != labels).any(dim=1)
+        idx = (new + base).reshape(-1)
+        sums = torch.zeros((G * k, d), dtype=torch.float32, device=dev).index_add_(0, idx, flat)
+        cnt = torch.zeros((G * k,), dtype=torch.float32, device=dev).index_add_(
+            0, idx, torch.ones_like(idx, dtype=torch.float32)
+        )
+        sums, cnt = sums.reshape(G, k, d), cnt.reshape(G, k)
+        upd = torch.where((cnt > 0)[:, :, None], sums / cnt.clamp(min=1.0)[:, :, None], cents)
+        cents = torch.where(active[:, None, None], upd, cents)
+        labels = torch.where(active[:, None], new, labels)
+        active = active & changed
+        if not bool(active.any()):
+            break
+    return cents, labels
+
+
+def kmeans_fit(data: torch.Tensor, k: int, seed: int = 0, max_iter: int = 100):
+    """Fit k-means on ``data`` f32[N, d] → (centroids f32[k, d], labels
+    u8[N]): furthest-point init, Lloyd's until the labels stop changing."""
+    cents, labels = _kmeans_fit_batched(data[None], k, [seed], max_iter)
+    return cents[0], labels[0].to(torch.uint8)
+
+
+def kmeans_fit_subvectors(data: torch.Tensor, k: int, seed: int = 0, max_iter: int = 100):
+    """Per-subvector fit for PQ: ``data`` f32[M, N, dsub] → (centroids
+    f32[M, k, dsub], labels u8[M, N]); subvector m is seeded ``seed + m``.
+    The fits run batched, as many subvectors at once as keep the
+    [m, N, k] distances within 2^26 elements."""
+    m, n, _ = data.shape
+    group = max(1, 2**26 // max(n * k, 1))
+    cents, labels = [], []
+    for g0 in range(0, m, group):
+        c, lab = _kmeans_fit_batched(
+            data[g0 : g0 + group], k, [seed + j for j in range(g0, min(g0 + group, m))], max_iter
+        )
+        cents.append(c)
+        labels.append(lab)
+    return torch.cat(cents), torch.cat(labels).to(torch.uint8)
 
 
 def kmeans_assign(

@@ -1,4 +1,4 @@
-"""K1-K4, the flat index and the IVF index on a CUDA card (skipped without one).
+"""K1-K4, K9, the flat index and the IVF index on a CUDA card (skipped without one).
 
 These need the card: the CUDA kernels have no CPU mode. The file imports
 neither JAX nor the JAX package, so it also runs where JAX is not installed:
@@ -9,7 +9,8 @@ Tolerances: K1 and K2 exact. K1's counts are integers and jaccard is one
 IEEE f32 division of two of them on both sides, on either route; the gather
 copies bits. K3 and K4 sum in another order than their plain versions:
 distances within 1e-5 of the summed terms' magnitude, ids by the tie rule at
-that tolerance.
+that tolerance. K9's ADC sums run in another order than its plain version's:
+scores within 1e-5 of M · max|table|, pools by the tie rule as multisets.
 """
 
 import numpy as np
@@ -18,9 +19,9 @@ import torch
 
 from semadb_tpu_torch.index.flat import IndexFlat
 from semadb_tpu_torch.index.ivf import IndexIVF
-from semadb_tpu_torch.models.quantizer import BinaryQuantizerParams, Quantizer
+from semadb_tpu_torch.models.quantizer import BinaryQuantizerParams, ProductQuantizerParams, Quantizer
 from semadb_tpu_torch.models.schema import VectorFlatParams, VectorIVFParams
-from semadb_tpu_torch.ops.kernels import gather, hamming, ivf_rerank, ivf_scan
+from semadb_tpu_torch.ops.kernels import gather, hamming, ivf_pq_scan, ivf_rerank, ivf_scan
 from semadb_tpu_torch.ops.topk import pool_errors, tie_rule_errors
 
 CASES = [
@@ -441,4 +442,146 @@ def test_ivf_index_on_card_matches_cpu(cuda, copies, bf16, monkeypatch):
         dist = ((vecs.astype(np.float64) - queries[b]) ** 2).sum(-1)
         errs = tie_rule_errors(d_cpu[b], i_cpu[b].tolist(), d_card[b], i_card[b].tolist(),
                                lambda i: dist[i - 2], atol=1e-4 * max(1.0, float(d_cpu[b, -1])))
+        assert not errs, (b, errs[:3])
+
+
+# K9 (B, p, S, M, K, rr, mask, offset): offset shifts the codes' base off the
+# 16-byte grid, so the narrower loads run
+PQ_SCAN_CASES = [
+    (1, 1, 64, 2, 16, 20, False, 0), (7, 24, 128, 4, 256, 256, True, 0), (64, 96, 256, 8, 256, 256, False, 0),
+    (4096, 24, 128, 8, 256, 256, False, 0), (4096, 24, 128, 8, 256, 256, True, 0), (64, 24, 64, 16, 16, 2048, True, 0),
+    (7, 5, 256, 128, 256, 20, False, 0), (64, 24, 128, 8, 256, 256, False, 4), (7, 24, 64, 16, 16, 64, True, 1),
+]
+
+
+def _pq_operands(gen, b, p, s, m, k, masked, offset):
+    c = max(2 * p, 32)
+    codes = torch.randint(0, k, (c * s * m + offset,), generator=gen, dtype=torch.uint8)[offset:].view(c, s, m)
+    ids = (torch.randperm(c * s, generator=gen).reshape(c, s) + 2).to(torch.int32)
+    ids[torch.rand((c, s), generator=gen) < 0.3] = -1
+    table = torch.randn((b, m, k), generator=gen)
+    probe = torch.argsort(torch.rand((b, c), generator=gen), dim=1)[:, :p].to(torch.int32).contiguous()
+    mask = (torch.rand(c * s + 2, generator=gen) < 0.5).to(torch.uint8) if masked else None
+    return table, probe, codes, ids, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,p,s,m,k,rr,masked,offset", PQ_SCAN_CASES)
+def test_pq_probe_scan_matches_plain(cuda, b, p, s, m, k, rr, masked, offset):
+    gen = torch.Generator().manual_seed(b + 10 * p + s + m + rr + offset)
+    table, probe, codes, ids, mask = _pq_operands(gen, b, p, s, m, k, masked, offset)
+    ops = [t if t is None else t.to(cuda) for t in (table, probe, codes, ids, mask)]
+    if offset:  # keep the base off the grid on the card too
+        flat = torch.empty(codes.numel() + offset, dtype=torch.uint8, device=cuda)[offset:]
+        flat.copy_(codes.reshape(-1))
+        ops[2] = flat.view(codes.shape)
+    before = dict(ivf_pq_scan.LAUNCHES_BY)
+    got = ivf_pq_scan.ivf_pq_probe_scan(*ops, rr)
+    torch.cuda.synchronize()
+    assert ivf_pq_scan.LAUNCHES_BY["probed"] == before.get("probed", 0) + 1
+    want = ivf_pq_scan.ivf_pq_probe_scan_plain(*ops, rr)
+    flat_ids = ids.reshape(-1)
+    cflat = codes.reshape(-1, m).long()
+
+    def dist_of(bb, i):
+        if i == -1:
+            return float("inf")
+        cell = int((flat_ids == i).nonzero()[0, 0])
+        return float(table[bb].double()[torch.arange(m), cflat[cell]].sum())
+
+    atol = torch.full((b,), IVF_RTOL * m * float(table.abs().max()))
+    _pools_agree(want, got, dist_of, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m,k,masked,offset", [
+    (1, 1, 8, 256, False, 0), (3, 100003, 8, 256, True, 0), (64, 4096, 16, 16, True, 0),
+    (5, 777, 4, 32, False, 2), (2, 5000, 128, 256, True, 0), (7, 1000, 2, 16, False, 1),
+])
+def test_pq_dense_scan_matches_plain(cuda, b, n, m, k, masked, offset):
+    gen = torch.Generator().manual_seed(b + n + m + k)
+    codes = torch.randint(0, k, (n * m + offset,), generator=gen, dtype=torch.uint8)[offset:].view(n, m)
+    table = torch.randn((b, m, k), generator=gen).to(cuda)
+    mask = (torch.rand(n, generator=gen) < 0.7).to(torch.uint8).to(cuda) if masked else None
+    dev_codes = torch.empty(n * m + offset, dtype=torch.uint8, device=cuda)[offset:].view(n, m)
+    dev_codes.copy_(codes)
+    before = ivf_pq_scan.LAUNCHES_BY.get("dense", 0)
+    got = ivf_pq_scan.pq_scan(table, dev_codes, mask)
+    torch.cuda.synchronize()
+    assert ivf_pq_scan.LAUNCHES_BY["dense"] == before + 1
+    want = ivf_pq_scan.pq_scan_plain(table, dev_codes, mask)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=0, atol=IVF_RTOL * m * float(table.abs().max()))
+
+
+@pytest.mark.cuda
+def test_pq_wrappers_refuse_bad_operands_on_card(cuda):
+    table = torch.zeros((2, 4, 16), device=cuda)
+    probe = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    codes = torch.zeros((4, 16, 4), dtype=torch.uint8, device=cuda)
+    ids = torch.full((4, 16), -1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        ivf_pq_scan.ivf_pq_probe_scan(table.cpu(), probe, codes, ids, None, 8)
+    with pytest.raises(TypeError, match="int32"):
+        ivf_pq_scan.ivf_pq_probe_scan(table, probe.long(), codes, ids, None, 8)
+    d, i = ivf_pq_scan.ivf_pq_probe_scan(table, probe, codes, ids, None, 8)
+    torch.cuda.synchronize()
+    assert torch.isinf(d).all() and (i == -1).all()  # every slot NIL
+    probe[0, 1] = 4  # outside [0, C): skipped; cluster 0 probed twice counts twice
+    ids[0] = torch.arange(16, dtype=torch.int32, device=cuda) + 2
+    d, i = ivf_pq_scan.ivf_pq_probe_scan(table, probe, codes, ids, None, 40)
+    torch.cuda.synchronize()
+    assert sorted(i[0, :32].tolist()) == sorted(list(range(2, 18)) * 2) and torch.isinf(d[0, 32:]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("copies", [1, 2])
+def test_ivfpq_index_on_card_matches_cpu(cuda, copies):
+    """An IVF-PQ index built on the card runs K9 and K4; the same arrays on
+    the CPU (plain versions) give the same results by the tie rule."""
+    rng = np.random.default_rng(copies + 10)
+    cents = rng.standard_normal((40, 32)).astype(np.float32) * 4
+    vecs = (cents[rng.integers(0, 40, 5000)] + rng.standard_normal((5000, 32))).astype(np.float32)
+    q = Quantizer(type="product", product=ProductQuantizerParams(num_centroids=64, num_subvectors=8,
+                                                                  trigger_threshold=1000, opq=False))
+    params = VectorIVFParams(vector_size=32, distance_metric="euclidean", assign_copies=copies, quantizer=q)
+    on_card = IndexIVF(params, cuda)
+    on_card.insert_bulk(np.arange(2, 5002), vecs)
+    assert on_card.pq_active and on_card.slabs.shape[0] == 1
+    on_cpu = IndexIVF.from_arrays(params, on_card.to_arrays(), torch.device("cpu"))
+    queries = rng.standard_normal((50, 32)).astype(np.float32) * 4
+    before = (ivf_pq_scan.LAUNCHES_BY.get("probed", 0), ivf_rerank.LAUNCHES)
+    d_card, i_card = on_card.search_batch(queries, 10)
+    assert ivf_pq_scan.LAUNCHES_BY["probed"] == before[0] + 1 and ivf_rerank.LAUNCHES == before[1] + 1
+    d_cpu, i_cpu = on_cpu.search_batch(queries, 10)
+    for b in range(len(queries)):
+        dist = ((vecs.astype(np.float64) - queries[b]) ** 2).sum(-1)
+        errs = tie_rule_errors(d_cpu[b], i_cpu[b].tolist(), d_card[b], i_card[b].tolist(),
+                               lambda i: dist[i - 2], atol=1e-4 * max(1.0, float(d_cpu[b, -1])))
+        assert not errs, (b, errs[:3])
+
+
+@pytest.mark.cuda
+def test_flat_pq_on_card_matches_cpu(cuda):
+    """A flat index with a product quantizer scans through K9's dense entry
+    on the card and through its plain version on the CPU."""
+    rng = np.random.default_rng(4)
+    vecs = rng.standard_normal((3000, 64)).astype(np.float32)
+    q = Quantizer(type="product", product=ProductQuantizerParams(num_centroids=32, num_subvectors=8,
+                                                                  trigger_threshold=2000))
+    params = VectorFlatParams(vector_size=64, distance_metric="euclidean", quantizer=q)
+    on_card = IndexFlat(params, cuda)
+    on_card.insert_update_delete(zip(range(2, 3002), vecs))
+    assert on_card.store.fitted
+    on_cpu = IndexFlat.from_arrays(params, on_card.to_arrays(), torch.device("cpu"))
+    queries = rng.standard_normal((20, 64)).astype(np.float32)
+    before = ivf_pq_scan.LAUNCHES_BY.get("dense", 0)
+    d_card, i_card = on_card.search_batch(queries, 10)
+    assert ivf_pq_scan.LAUNCHES_BY["dense"] == before + 1
+    d_cpu, i_cpu = on_cpu.search_batch(queries, 10)
+    full = on_cpu.store.scan_distances(torch.from_numpy(queries), on_cpu.vectors, on_cpu.exists).numpy()
+    for b in range(len(queries)):
+        errs = tie_rule_errors(d_cpu[b], i_cpu[b].tolist(), d_card[b], i_card[b].tolist(), full[b],
+                               atol=1e-5 * 8 * float(np.abs(full[b][np.isfinite(full[b])]).max()))
         assert not errs, (b, errs[:3])

@@ -93,10 +93,19 @@ def test_vector_store_scan_matches_jax(cfg):
 
 
 def test_product_quantizer_not_ported_yet():
-    q = port_models.Quantizer(type="product", product=port_models.ProductQuantizerParams(num_centroids=16, num_subvectors=8))
+    """A flat index takes a product store and fits it at its trigger
+    (``tests/test_torch_pq.py`` holds it against the JAX package). The name
+    is kept from when the port refused the product quantizer, so that the
+    test's record runs on."""
+    q = port_models.Quantizer(type="product", product=port_models.ProductQuantizerParams(
+        num_centroids=16, num_subvectors=8, trigger_threshold=200, opq=False))
     params = port_models.VectorFlatParams(vector_size=DIM, distance_metric="euclidean", quantizer=q)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        IndexFlat(params, CPU)
+    idx = IndexFlat(params, CPU)
+    assert idx.store.config.kind == "product" and not idx.store.fitted
+    vecs = _unit(240)
+    idx.insert_update_delete(zip(range(2, 242), vecs))
+    assert idx.store.fitted and idx.store.state.codes.dtype == torch.uint8
+    assert tuple(idx.store.state.aux.shape) == (8, 16, DIM // 8)
 
 
 # -- flat index ------------------------------------------------------------------

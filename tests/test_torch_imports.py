@@ -8,8 +8,9 @@ modules the port keeps its own copies of (``models/``, ``store/``,
 ``csrc/kvstore.cpp``) stay the same as the JAX
 package's originals, apart from their imports and the store's native build;
 so do the definitions it copies from ``utils/pipeline.py`` (all but the
-readback), ``tools/datasets.py`` (the host generator and ground truth) and
-``vectorstore/kmeans.py`` (``_group_rows``, host numpy).
+readback), ``tools/datasets.py`` (the host generators and ground truth),
+``vectorstore/kmeans.py`` (``_group_rows``, host numpy) and
+``index/fused.py`` (the fused engine's members that need no tensor).
 """
 
 import ast
@@ -155,8 +156,14 @@ PARTIAL_COPIES = [
     # AsyncDispatcher._materialise reads tensors back with .cpu() where the
     # original maps jax.tree over np.asarray
     ("utils/pipeline.py", None, ("_materialise",)),
-    ("tools/datasets.py", ("AnnDataset", "embedding_like", "compute_ground_truth"), ()),
+    ("tools/datasets.py", ("AnnDataset", "embedding_like", "embedding_like_views", "compute_ground_truth"), ()),
     ("vectorstore/kmeans.py", ("_group_rows",), ()),
+    # The fused engine: the feature maps, search and persistence helpers are
+    # the original's; these members take a device, work on tensors or wait
+    # for the mesh (capture_stack_view) and the dirty tracker (dirty)
+    ("index/fused.py", ("FusedHybridIVF",), (
+        "__init__", "from_params", "_fix_probe_centroids", "sync", "search_batch_async", "to_arrays",
+        "capture_stack_view", "device_arrays", "dirty", "from_arrays")),
 ]
 
 

@@ -15,8 +15,8 @@
   port, plus the write order that keeps a concurrent search from scoring a
   slot before its row is written.
 - Wiring: ``vectorIVF`` through the port's shard and HTTP v2 server, a shard
-  written by the JAX package opened by the port, and the refusal of a
-  product quantizer.
+  written by the JAX package opened by the port, and the manager admitting
+  a product quantizer.
 """
 
 import threading
@@ -568,14 +568,20 @@ def test_jax_written_ivf_shard_opens_in_port(tmp_path, journal):
 
 
 def test_product_quantizer_on_ivf_is_refused():
+    """The manager admits a product quantizer on vectorIVF and the engine
+    takes it (``tests/test_torch_ivfpq.py`` holds it against the JAX
+    package); vectorVamana is still refused by name. The name is kept from
+    when the port refused IVF-PQ, so that the test's record runs on."""
     schema = port_models.IndexSchema.from_dict({"v": {"type": "vectorIVF", "vectorIVF": {
         "vectorSize": 16, "distanceMetric": "euclidean",
         "quantizer": {"type": "product", "product": {"numCentroids": 16, "numSubVectors": 4}}}}})
-    with pytest.raises(ValidationError, match="product quantizer on vectorIVF"):
-        check_supported(schema)
-    with pytest.raises(NotImplementedError, match="product quantizer"):
-        port_ivf.IndexIVF(schema.get("v").vector_ivf, CPU)
+    check_supported(schema)
+    idx = port_ivf.IndexIVF(schema.get("v").vector_ivf, CPU)
+    assert idx.pq_config is not None and idx.pq_config.num_subvectors == 4 and not idx.pq_active
     check_supported(port_models.IndexSchema.from_dict(IVF_SCHEMA))
+    with pytest.raises(ValidationError, match="vectorVamana"):
+        check_supported(port_models.IndexSchema.from_dict({"v": {"type": "vectorVamana", "vectorVamana": {
+            "vectorSize": 4, "distanceMetric": "euclidean"}}}))
 
 
 def test_ground_truth_on_device_matches_jax_and_host(monkeypatch):

@@ -276,19 +276,23 @@ def test_jax_replays_port_journal(tmp_path):
 
 
 def test_port_refuses_unported_index_types(tmp_path):
+    """vectorVamana is still refused by name; vectorFused and a product
+    quantizer, ported since, are admitted."""
     node, srv, base = _start("port", str(tmp_path))
     try:
-        for schema, name in (
-            ({"v": {"type": "vectorVamana", "vectorVamana": {"vectorSize": 4, "distanceMetric": "euclidean"}}}, "vectorVamana"),
-            ({"v": {"type": "vectorFused", "vectorFused": {"views": [
+        vamana = {"v": {"type": "vectorVamana", "vectorVamana": {"vectorSize": 4, "distanceMetric": "euclidean"}}}
+        r = requests.post(base, json={"id": "nope", "indexSchema": vamana}, headers=HEADERS)
+        assert r.status_code == 400 and "vectorVamana" in r.json()["error"], r.text
+        for name, schema in (
+            ("fusedcol", {"v": {"type": "vectorFused", "vectorFused": {"views": [
                 {"vectorSize": 4, "distanceMetric": "euclidean"}, {"vectorSize": 4, "distanceMetric": "dot"}]}},
-              "title": {"type": "text", "text": {"analyser": "standard"}}}, "vectorFused"),
-            ({"v": {"type": "vectorFlat", "vectorFlat": {"vectorSize": 8, "distanceMetric": "euclidean",
-                    "quantizer": {"type": "product", "product": {"numCentroids": 16, "numSubVectors": 2}}}}}, "product"),
+              "title": {"type": "text", "text": {"analyser": "standard"}}}),
+            ("pqcol", {"v": {"type": "vectorFlat", "vectorFlat": {"vectorSize": 8, "distanceMetric": "euclidean",
+                    "quantizer": {"type": "product", "product": {"numCentroids": 16, "numSubVectors": 2}}}}}),
         ):
-            r = requests.post(base, json={"id": "nope", "indexSchema": schema}, headers=HEADERS)
-            assert r.status_code == 400 and name in r.json()["error"], r.text
-        assert requests.get(base, headers=HEADERS).json()["collections"] == []
+            r = requests.post(base, json={"id": name, "indexSchema": schema}, headers=HEADERS)
+            assert r.status_code == 200, r.text
+        assert sorted(c["id"] for c in requests.get(base, headers=HEADERS).json()["collections"]) == ["fusedcol", "pqcol"]
     finally:
         srv.shutdown()
         node.close()
