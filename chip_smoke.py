@@ -80,8 +80,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    entry at B in {1, 7, 64, 4096}, p in {1, 24, 96}, S in {64, 128, 256}, M
    in {2, 4, 8, 16, 128}, K in {16, 256}, rr in {20, 256, 2048}, 30% NIL
    slots, with and without a mask (every value, in 14 combinations, the
-   IVF-PQ cell's shape among them), scores within 1e-5 of M · max|table|,
-   pools by the tie rule; its dense entry at N in {1, 4096, 100,003} with
+   IVF-PQ cell's shape among them), and at 12 layouts that stress its
+   selection (a cluster probed twice with probes of -1 and C, tie-heavy
+   integer tables at K = 16, M = 2, negative tables, clusters with no live
+   slot, no live slot at all, rr above the live slots up to rr = 2048 at
+   B = 4096, and the chunk patched small so that a query takes several
+   selections), scores within 1e-5 of M · max|table|, pools by the tie rule,
+   exactly min(rr, live) places filled; 51 calls at the IVF-PQ cell's shape
+   on normal tables must give one result bit for bit; its dense entry at N in {1, 4096, 100,003} with
    masked rows, the same tolerance. K3 also at the 10M cell's widths over one
    slab set made on the card: C = 131,072 (32 tiles of the offsets scan),
    S = 192, r = 128, bf16, 30% NIL slots, at B in {1, 4096} x p in {24, 96},
@@ -97,10 +103,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    a torch.profiler pass over one batch, stage by stage. Then K3 and K4 on
    the cell's own operands (4,096 queries): checked against their plain
    versions, timed (torch.profiler, mean of 20 calls; K3's time is every
-   device event of its calls, its five kernels and its memset, and each must
-   have recorded one launch a call, or, where the profiler lost launches
-   (P2), the window's time must lie within 75-100% of a call's CUDA-event
-   time; the same holds for K3 at the 10M and fused cells), the plain
+   device event of its calls, its five kernels and its memset, each with one
+   launch a call, or at least half of them where the profiler lost launches
+   (P2), and it must lie within 75-100% of the CUDA-event time of the same
+   calls in the same window; a window that fails either is opened again,
+   and after three the CUDA-event time is reported instead, logged; the same
+   holds for K3 at the 10M and fused cells and for every other kernel time:
+   a lost profiler window never fails the run), the plain
    versions timed, and set
    against their byte bounds; K3 also at B from 1 to 4,096 (the cell's first
    B queries), K4 also at B = 1, on the device and as a call with its host
@@ -163,7 +172,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    encode, QPS and one batch under torch.profiler. Then K9 (and K4) on the
    cell's own operands: checked, timed, their byte bounds; K9 at B = 1, and
    its dense entry at the batch's tables over 4,096 rows of the cell's own
-   codes (the overflow pool's floor; the cell's pool itself is empty).
+   codes (the overflow pool's floor; the cell's pool itself is empty). With
+   ``--k9-baseline SOURCE`` (another K9 source with the same C interface,
+   such as the parent commit's) that library is built, checked on the cell's
+   operands and timed beside the tree's K9 at B = 4,096 and 1, in turns.
 12. The fused cell: ``BENCH_MODE=fused python bench.py`` on the port,
    ``annbench.main(["--fused"])``: 1,000,000 points of two views (128 and
    64, ``embedding_like_views(seed=42)``), euclidean, weights 0.7 and 0.3,
@@ -193,9 +205,10 @@ no operations term can be a least time for it; the term at the int8 rate
 (2 B N 32W / 1.979e15 s) is printed beside the bound for information.
 
 The data are unit-norm 1536-d vectors with an embedding-like spectrum,
-made from ``--seed`` with numpy. Output: progress lines, then the card's
-name and power limit, a ``{"kernels": [...]}`` JSON line, and last
-``{"ok": true, "device": {...}}``.
+made from ``--seed`` with numpy. Each phase logs a line when it starts and
+one when it passed. Output: progress lines, then the card's name and power
+limit, a ``{"kernels": [...]}`` JSON line, and last ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -226,11 +239,15 @@ GATHER_SHAPES = [(d, n, cap) for d in (1, 3, 128, 1536) for n in (1, 1023, 1024,
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT8_OPS_PER_S = 1.979e15  # H100 SXM tensor cores, int8 dense
 FLUSH_BYTES = 128 << 20  # written, and as much read, between L2-cold calls
-PROFILER_WINDOWS = 3  # windows a time may take before a lost window fails the run
-# Least share of a K3 call's CUDA-event time (host launch work included) that
-# its profiler time may read at a cell; the 10M cell read 86.8-90.2% on the
-# H100
+PROFILER_WINDOWS = 3  # windows a time may take before the CUDA-event time stands in
+# Least share of the CUDA-event time of the same calls that K3's profiler
+# time may read (the gaps between its kernels are the rest)
 K3_EVENT_SHARE = 0.75
+# Clock cycles (~0.5 ms on the H100) a timed call may take the host to queue
+# under the profiler: the spin that holds the device while the calls are
+# queued lasts this much a call (K3 at B = 1 took ~0.11 ms a call of the host)
+HOLD_CYCLES_PER_CALL = 1_000_000
+EVENT_FALLBACKS: list = []  # times reported by CUDA events after the profiler lost every window
 K1_KERNEL = "bit_distance_kernel"  # in the names of both of K1's routes
 
 
@@ -400,85 +417,109 @@ def _median_call_ms(torch, fn, runs: int = 30) -> float:
     return float(np.median(times))
 
 
-def _device_events(torch, fn, runs: int = 30, before=None) -> dict:
-    """``{name: (launches, device us)}`` of the device events the profiler
-    recorded over ``runs`` calls of ``fn`` (a CPU op's device time repeats
-    its kernels', so only device-side events count). ``before`` runs ahead of
-    each call, outside the count. The window opens with untimed spin kernels
-    (``annbench.prime_profiler``): in this script's process the profiler
-    missed the first two or three device events of a window."""
+def _device_events(torch, fn, runs: int = 30, before=None) -> tuple:
+    """``({name: (launches, device us)}, event ms)``: the device events the
+    profiler recorded over ``runs`` calls of ``fn`` (a CPU op's device time
+    repeats its kernels', so only device-side events count), and the
+    CUDA-event time of the same calls, per call. ``before`` runs ahead of
+    each call, outside both. The window opens with untimed spin kernels
+    (``annbench.prime_profiler``: in this script's process the profiler
+    missed the first two or three device events of a window), then one more
+    spin, of HOLD_CYCLES_PER_CALL a call, holds the device while the host
+    queues the calls, so the event pair around each call times it on the
+    device, not the host's launch work."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from semadb_tpu_torch.tools.annbench import PRIME_KERNEL, prime_profiler
 
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(runs)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prime_profiler()
-        for _ in range(runs):
+        torch.cuda._sleep(HOLD_CYCLES_PER_CALL * runs)
+        for start, end in pairs:
             if before is not None:
                 before()
+            start.record()
             fn()
+            end.record()
         torch.cuda.synchronize()
-    return {e.key: (e.count, e.self_device_time_total) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and PRIME_KERNEL not in e.key}
+    events = {e.key: (e.count, e.self_device_time_total) for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and PRIME_KERNEL not in e.key}
+    return events, sum(start.elapsed_time(end) for start, end in pairs) / runs
 
 
-def _device_ms(torch, fn, runs: int = 30, before=None, kernel=None):
+def _named(key: str, names) -> bool:
+    return any(name in key for name in ((names,) if isinstance(names, str) else names))
+
+
+def _device_ms(torch, fn, runs: int = 30, before=None, kernel=None) -> float:
     """Device time per call: the time of the device events over ``runs``
-    calls of ``fn`` (only events whose name holds ``kernel``, when given,
-    averaged over the launches recorded). A window that recorded none of
-    them is logged and opened again (P2: in this script's process the
-    profiler has lost device events); raises after PROFILER_WINDOWS such
-    windows."""
+    calls of ``fn`` (only events whose name holds ``kernel``, a name or a
+    tuple of names, when given, averaged over the launches recorded). A
+    window that recorded none of them is logged and opened again (P2: in
+    this script's process the profiler has lost device events); after
+    PROFILER_WINDOWS such windows the CUDA-event time of the last window's
+    calls is reported instead, and logged: a lost window never fails the
+    run."""
     for window in range(PROFILER_WINDOWS):
-        recorded = _device_events(torch, fn, runs, before)
-        events = {k: v for k, v in recorded.items() if kernel is None or kernel in k}
+        recorded, event_ms = _device_events(torch, fn, runs, before)
+        events = {k: v for k, v in recorded.items() if kernel is None or _named(k, kernel)}
         total_us = sum(us for _, us in events.values())
         if total_us > 0:
-            break
+            calls = sum(n for n, _ in events.values()) if kernel is not None else runs
+            return total_us / 1e3 / calls
         log(f"[profiler] window {window + 1} of {PROFILER_WINDOWS} recorded no device time of "
             f"{kernel or 'any kernel'} in {runs} calls (recorded: {sorted(recorded)})")
-    else:
-        raise RuntimeError(f"torch.profiler recorded no device time of {kernel or 'any kernel'} in "
-                           f"{PROFILER_WINDOWS} windows; the kernel times cannot be measured")
-    calls = sum(n for n, _ in events.values()) if kernel is not None else runs
-    return total_us / 1e3 / calls
+    EVENT_FALLBACKS.append(f"{kernel or 'all kernels'}: {event_ms:.4f} ms")
+    log(f"[profiler] {PROFILER_WINDOWS} windows lost {kernel or 'every kernel'}: reporting the CUDA-event time of "
+        f"the last window's calls, {event_ms:.4f} ms a call; its device time by kernel is not measured")
+    return event_ms
 
 
-def _k3_device_ms(torch, ivf_scan, ops, chunks: int = 1, runs: int = 20, call_ms=None) -> dict:
+def _k3_device_ms(torch, ivf_scan, ops, chunks: int = 1, runs: int = 20) -> dict:
     """K3's device time per call: every device event of the calls (its
-    kernels and the memset of its work area) over the calls. Each event must
-    record one launch a call and chunk; a window that lost launches (P2: in
-    this script's process the profiler drops events) is logged and opened
-    again, at most PROFILER_WINDOWS times. Given ``call_ms`` (the CUDA-event
-    time of a call, which the profiler cannot lose), a window that kept at
-    least half of each event's launches is taken, each event's time divided
-    by the launches it kept; the time a call must then lie between
-    K3_EVENT_SHARE of ``call_ms`` and ``call_ms``."""
+    kernels and the memset of its work area) over the calls, held to the
+    CUDA-event time of the same calls in the same window: it must lie within
+    K3_EVENT_SHARE-100% of it. Each event must record one launch a call and
+    chunk; a window that lost launches (P2: in this script's process the
+    profiler drops events) is taken only if it kept at least half of each
+    event's launches (each event's time divided by the launches it kept) and
+    passes that check. A window that is not taken is logged and opened again;
+    after PROFILER_WINDOWS of them the CUDA-event time of the last window's
+    calls is reported, ``by_kernel_ms`` is "not measured", and the run goes
+    on. A device event that is not K3's fails the run."""
     names = ivf_scan.KERNELS + ("Memset",)
     want = runs * chunks
     for window in range(PROFILER_WINDOWS):
-        events = _device_events(torch, functools.partial(ivf_scan.ivf_probe_scan, *ops), runs)
+        events, event_ms = _device_events(torch, functools.partial(ivf_scan.ivf_probe_scan, *ops), runs)
+        other = {k for k in events if not _named(k, names)}
+        if other:
+            raise AssertionError(f"K3: device events that are not K3's: {sorted(other)}")
         hits = {name: [(n, us) for key, (n, us) in events.items() if name in key] for name in names}
         got = {name: sum(n for n, _ in h) for name, h in hits.items()}
-        if all(n == want for n in got.values()):
-            break
-        log(f"[profiler] window {window + 1} of {PROFILER_WINDOWS} recorded {got} launches of K3's events in "
-            f"{runs} calls of {chunks} chunk(s), not {want} each")
-        if call_ms is not None and all(2 * n >= want for n in got.values()):
-            break
-    else:
-        raise AssertionError(f"K3: {PROFILER_WINDOWS} profiler windows lost launches: {got}")
-    by = {name: sum(us for _, us in h) / 1e3 / got[name] * chunks for name, h in hits.items()}
-    other = {k for k in events if not any(name in k for name in names)}
-    if other:
-        raise AssertionError(f"K3: device events that are not K3's: {sorted(other)}")
-    ms = sum(by.values())
-    if call_ms is not None and not K3_EVENT_SHARE * call_ms <= ms <= call_ms:
-        raise AssertionError(f"K3: the profiler's {ms:.4f} ms a call is not within {K3_EVENT_SHARE:.0%}-100% "
-                             f"of a call's CUDA-event time, {call_ms:.4f} ms")
-    return {"ms": ms, "by_kernel_ms": by, "kernels_per_call": len(names) * chunks, "launches_recorded": got}
+        out = {"event_ms": event_ms, "kernels_per_call": len(names) * chunks, "launches_recorded": got}
+        if not all(2 * n >= want for n in got.values()):
+            log(f"[profiler] window {window + 1} of {PROFILER_WINDOWS} recorded {got} launches of K3's events in "
+                f"{runs} calls of {chunks} chunk(s), not {want} each")
+            continue
+        by = {name: sum(us for _, us in h) / 1e3 / got[name] * chunks for name, h in hits.items()}
+        ms = sum(by.values())
+        if K3_EVENT_SHARE * event_ms <= ms <= event_ms:
+            return {**out, "ms": ms, "by_kernel_ms": by, "share": ms / event_ms, "measured_by": "profiler"}
+        log(f"[profiler] window {window + 1} of {PROFILER_WINDOWS}: K3's profiler time {ms:.4f} ms a call "
+            f"(launches recorded {got}, {want} each a window) is not within {K3_EVENT_SHARE:.0%}-100% of the same "
+            f"calls' CUDA-event time, {event_ms:.4f} ms")
+    EVENT_FALLBACKS.append(f"K3 ({chunks} chunk(s)): {event_ms:.4f} ms")
+    log(f"[profiler] K3: no window of {PROFILER_WINDOWS} was taken; reporting the CUDA-event time of the last "
+        f"window's calls, {event_ms:.4f} ms a call; K3's time by kernel is not measured")
+    return {**out, "ms": event_ms, "by_kernel_ms": "not measured", "share": None, "measured_by": "cuda events"}
+
+
+def _by_kernel_text(t3) -> str:
+    by = t3["by_kernel_ms"]
+    return by if isinstance(by, str) else ", ".join(f"{n} {v:.4f}" for n, v in by.items())
 
 
 def _l2_flush(torch):
@@ -694,6 +735,24 @@ K9_DENSE_CASES = [
     (1, 1, 8, 256, False), (3, 1, 2, 16, True), (64, 100_003, 8, 256, True), (7, 100_003, 128, 256, True),
     (4096, 4096, 8, 256, True), (1, 100_003, 16, 16, False),
 ]
+# K9's probed entry at the layouts that stress its selection: (B, p, S, M, K,
+# rr, mask, layout, chunk). "dup-probes": each query probes a cluster twice
+# and holds probes of -1 and C; "ties": tables of the integers -2..2 (K = 16,
+# M = 2: many equal scores at the cut); "negative": every entry below -1;
+# "all-nil": half the clusters hold no live slot; "nil": no slot is live;
+# "sparse": 85% NIL slots, so rr exceeds the live slots. chunk, when given,
+# patches the most slots a block scores between two selections, so queries
+# take several (the kept set, the running bound)
+K9_LAYOUT_CASES = [
+    (64, 24, 128, 8, 256, 256, False, "dup-probes", None), (4096, 24, 128, 8, 256, 256, True, "dup-probes", None),
+    (4096, 24, 64, 2, 16, 256, False, "ties", None), (1024, 24, 128, 2, 16, 2048, False, "ties", None),
+    (7, 96, 128, 2, 16, 20, True, "ties", 256), (64, 24, 128, 8, 256, 256, False, "negative", None),
+    (64, 24, 128, 8, 256, 256, True, "all-nil", None), (7, 24, 128, 8, 256, 256, False, "nil", None),
+    (4096, 24, 128, 8, 256, 2048, False, "sparse", None), (1, 5, 64, 4, 16, 256, False, "sparse", None),
+    (64, 24, 128, 8, 256, 256, True, None, 256), (4096, 24, 128, 8, 256, 256, False, "negative", 512),
+]
+# Calls of K9 at the IVF-PQ cell's shape that must repeat the first bit for bit
+K9_REPEATS = 50
 # Rows of K9's dense entry timed at the IVF-PQ cell's batch: the overflow
 # pool's floor from 2^17 points (index/ivf.py)
 K9_DENSE_ROWS = 4096
@@ -1087,7 +1146,7 @@ def phase_ivf_cell(torch, counted, argv=(), baseline=None) -> dict:
           "design_bytes_ms": _bound_ms(k3_bytes["design"]), "distinct_clusters": distinct,
           "live_slots_distinct": live_distinct, "valid_slots": valid, "by_kernel_ms": t3["by_kernel_ms"],
           "kernels_per_call": t3["kernels_per_call"], "b_sweep_ms": sweep, "b1_call_ms": call1,
-          "call_ms": kc["k3_call"]}
+          "call_ms": kc["k3_call"], **{key: t3[key] for key in ("event_ms", "share", "measured_by")}}
     one_bytes, _ = _k4_bytes(torch, idx.vectors, q[:1], pool_i[:1], pool_d[:1], k)
     k4 = {"launches": launches["K4"], "max_abs_err": err4, "plain_ms": t4_plain, "dedup": dedup,
           "bound_ms": _bound_ms(k4_bytes), "bound_by": "bytes", "bytes": k4_bytes, "distinct_rows": rows4,
@@ -1097,8 +1156,8 @@ def phase_ivf_cell(torch, counted, argv=(), baseline=None) -> dict:
         f"{idx.slabs.dtype}, K4 dedup={dedup}); max |err| K3 {err3:.3g}, K4 {err4:.3g}")
     log(f"[ivf-cell] K3 {t3['ms']:.4f} ms a call, {t3['kernels_per_call']} device events a call, each one launch "
         f"a call (device, mean of {IVF_TIMED_RUNS}): "
-        + ", ".join(f"{n} {v:.4f}" for n, v in t3["by_kernel_ms"].items()) + f"; plain {t3_plain:.4f} ms; "
-        f"a call with its host work {kc['k3_call']:.4f} ms (CUDA events), {t3['ms'] / kc['k3_call']:.1%} of it")
+        + _by_kernel_text(t3) + f"; the same calls by CUDA events {t3['event_ms']:.4f} ms a call (taken from the "
+        f"{t3['measured_by']}); plain {t3_plain:.4f} ms; a call with its host work {kc['k3_call']:.4f} ms")
     log(f"[ivf-cell] K3 bound {k3['bound_ms']:.4f} ms by bytes ({k3_bytes['distinct']} B: {distinct} distinct "
         f"probed clusters once, the rows of their {live_distinct} live slots), {k3['bound_ms'] / t3['ms']:.1%} of "
         f"it; the design's own traffic (with the f32[{B}, {p}, {S}] scratch written and read) "
@@ -1123,8 +1182,9 @@ def _cell_kernels(torch, ivf_scan, ivf_rerank, idx, queries, what: str) -> dict:
     against its plain version, K3 and both plain versions timed, and the
     bytes of each kernel's bound counted (K3: the ids of each distinct probed
     cluster once, the rows and norms of its live slots; K4: each distinct live
-    pool row once). K3's profiler time is held to a call's CUDA-event time
-    (``k3_call``) where its window lost launches."""
+    pool row once). K3's profiler time is held to the CUDA-event time of the
+    same calls (``_k3_device_ms``); ``k3_call`` is a call's time with its host
+    work."""
     ops: dict = {}
     idx.search_batch_async(queries, LIMIT, keep=ops)
     k3_ops, k4_ops = ops["k3"], ops["k4"]
@@ -1163,7 +1223,7 @@ def _cell_kernels(torch, ivf_scan, ivf_rerank, idx, queries, what: str) -> dict:
         "k3_ops": k3_ops, "k4_ops": k4_ops, "B": B, "p": p, "S": S, "r": r, "rr": rr, "k": k, "dedup": dedup,
         "err3": err3, "err4": err4, "k3_bytes": k3_bytes, "k4_bytes": k4_bytes, "rows4": rows4,
         "distinct": distinct, "live_distinct": live_distinct, "valid": valid, "chunks": chunks,
-        "t3": _k3_device_ms(torch, ivf_scan, k3_ops, chunks, IVF_TIMED_RUNS, k3_call), "k3_call": k3_call,
+        "t3": _k3_device_ms(torch, ivf_scan, k3_ops, chunks, IVF_TIMED_RUNS), "k3_call": k3_call,
         "t3_plain": _device_ms(torch, functools.partial(ivf_scan.ivf_probe_scan_plain, *k3_ops), runs=3),
         "t4_plain": _device_ms(torch, functools.partial(ivf_rerank.ivf_exact_rerank_plain, *k4_ops), runs=3),
     }
@@ -1279,7 +1339,8 @@ WRITE_SEED = 43  # the cell's generator is seeded 42
 
 def _k3_line(t3, nbytes) -> str:
     return (f"{t3['ms']:.4f} ms a call ({_bound_ms(nbytes) / t3['ms']:.1%} of the {_bound_ms(nbytes):.4f} ms bound, "
-            f"{nbytes} B): " + ", ".join(f"{n} {v:.4f}" for n, v in t3["by_kernel_ms"].items()))
+            f"{nbytes} B), from the {t3['measured_by']} (the same calls by CUDA events {t3['event_ms']:.4f} ms): "
+            + _by_kernel_text(t3))
 
 
 def phase_ivf_10m(torch, counted, argv=CELL_10M_ARGV) -> dict:
@@ -1345,7 +1406,7 @@ def phase_ivf_10m(torch, counted, argv=CELL_10M_ARGV) -> dict:
                        _k3_dist_of(torch, k3_ops[0], slabs32, idx.slab_sq, idx.slab_ids),
                        _k3_atol(torch, k3_ops[0], slabs32), "K3 on the 10M cell, f32 slabs")
     call32 = _median_call_ms(torch, functools.partial(ivf_scan.ivf_probe_scan, *ops32))
-    t3_32 = _k3_device_ms(torch, ivf_scan, ops32, kc["chunks"], IVF_TIMED_RUNS, call32)
+    t3_32 = _k3_device_ms(torch, ivf_scan, ops32, kc["chunks"], IVF_TIMED_RUNS)
     bytes32 = k3_bytes["distinct"] + kc["live_distinct"] * kc["r"] * 2  # 4 B a value where bf16 has 2
     peak_f32 = torch.cuda.max_memory_allocated() / 2**30
     bf16 = idx.slabs
@@ -1394,6 +1455,7 @@ def phase_ivf_10m(torch, counted, argv=CELL_10M_ARGV) -> dict:
           "plain_ms": kc["t3_plain"], "bound_ms": _bound_ms(k3_bytes["distinct"]), "bytes": k3_bytes,
           "by_kernel_ms": kc["t3"]["by_kernel_ms"], "distinct_clusters": kc["distinct"],
           "live_slots_distinct": kc["live_distinct"], "call_ms": k3_call, "f32_ms": t3_32["ms"], "f32_call_ms": call32,
+          **{key: kc["t3"][key] for key in ("event_ms", "share", "measured_by")},
           "f32_bound_ms": _bound_ms(bytes32)}
     k4 = {"launches": launches["K4"], "max_abs_err": kc["err4"], "ms": t4, "plain_ms": kc["t4_plain"],
           "bound_ms": _bound_ms(kc["k4_bytes"]), "bytes": kc["k4_bytes"], "distinct_rows": kc["rows4"]}
@@ -1451,6 +1513,34 @@ def load_k4_baseline(source: str):
     path, _ = build_library("ivf_rerank_baseline", source, nvcc(), NVCC_FLAGS, (header,))
     log(f"[build] K4 baseline {source}: built into {path}")
     return ivf_rerank.bind(path)
+
+
+def load_k9_baseline(source: str):
+    """Build and load another K9 source with the same C interface (e.g. the
+    parent commit's ``csrc/ivf_pq_scan.cu``, with the ``ivf_common.cuh`` beside
+    it when there is one), to time beside the tree's K9; it launches through
+    :func:`_k9_baseline_call` and counts nothing."""
+    import os
+
+    from semadb_tpu_torch.ops.kernels import ivf_pq_scan
+    from semadb_tpu_torch.utils.build import NVCC_FLAGS, build_library, nvcc
+
+    header = os.path.join(os.path.dirname(os.path.abspath(source)), "ivf_common.cuh")
+    path, _ = build_library("ivf_pq_scan_baseline", source, nvcc(), NVCC_FLAGS,
+                            (header,) if os.path.exists(header) else ())
+    log(f"[build] K9 baseline {source}: built into {path}")
+    return ivf_pq_scan.bind(path)
+
+
+def _k9_baseline_call(ivf_pq_scan, lib, table, probe, codes, ids, mask, rr):
+    """The K9 baseline's probed entry on the tree's operands. The baseline
+    source this flag was written for (the one-query-a-block design with a
+    bitonic-sorted append buffer) takes, after rr, the length of that
+    buffer: the power of two at or above rr + 1,024 (and at least 1,024)."""
+    nbuf = 1024
+    while nbuf < rr + 1024:
+        nbuf <<= 1
+    return ivf_pq_scan.launch_probed(lib, table, probe, codes, ids, mask, rr, nbuf)
 
 
 def hybrid_corpus(n: int, seed: int) -> dict:
@@ -1695,22 +1785,36 @@ def phase_hybrid(torch, counted, device, seed: int, n_points: int = HYBRID_POINT
             "member_call_ms": member_call_ms, "launches": launches, "checked": checked}
 
 
-def _k9_operands(torch, gen, b, p, s, m, k, masked, device):
+def _k9_operands(torch, gen, b, p, s, m, k, masked, device, layout=None):
     """A code slab set for K9 at a shape: u8[c, s, m] codes, distinct ids from
     2 on with 30% NIL slots, normal f32 tables, p distinct probes a query and
-    a u8 mask that admits about half the ids."""
+    a u8 mask that admits about half the ids; ``layout`` as K9_LAYOUT_CASES
+    says."""
     c = max(2 * p, 32)
     codes = torch.randint(0, k, (c, s, m), generator=gen, dtype=torch.uint8)
     ids = (torch.randperm(c * s, generator=gen).reshape(c, s) + 2).to(torch.int32)
-    ids[torch.rand((c, s), generator=gen) < 0.3] = -1
+    ids[torch.rand((c, s), generator=gen) < (0.85 if layout == "sparse" else 0.3)] = -1
+    if layout == "all-nil":
+        ids[torch.rand(c, generator=gen) < 0.5] = -1
+    elif layout == "nil":
+        ids[:] = -1
     table = torch.randn((b, m, k), generator=gen)
-    probe = torch.argsort(torch.rand((b, c), generator=gen), dim=1)[:, :p].to(torch.int32).contiguous()
+    if layout == "ties":
+        table = torch.randint(-2, 3, (b, m, k), generator=gen).float()
+    elif layout == "negative":
+        table = -1.0 - table.abs()
+    probe = torch.argsort(torch.rand((b, c), generator=gen), dim=1)[:, :p].to(torch.int32)
+    if layout == "dup-probes" and p >= 4:  # a cluster twice, then -1 and C
+        probe[:, 1] = probe[:, 0]
+        probe[:, 2] = -1
+        probe[:, 3] = c
     mask = (torch.rand(c * s + 2, generator=gen) < 0.5).to(torch.uint8) if masked else None
-    return [None if t is None else t.to(device) for t in (table, probe, codes, ids, mask)]
+    return [None if t is None else t.to(device) for t in (table, probe.contiguous(), codes, ids, mask)]
 
 
 def _k9_dist_of(torch, table, codes, slab_ids):
-    """id → its ADC score for query b, in f64 on the host (first copy of the id)."""
+    """id → its ADC score for query b, in f64 on the host (first copy of the
+    id), from host copies of the operands made at the first lookup."""
     index = {}
     m = codes.shape[-1]
 
@@ -1719,9 +1823,10 @@ def _k9_dist_of(torch, table, codes, slab_ids):
             ids_h = slab_ids.cpu().numpy().reshape(-1)
             index["order"] = np.argsort(ids_h, kind="stable")
             index["sorted"] = ids_h[index["order"]]
-            index["codes"] = codes.reshape(-1, m).cpu().long()
+            index["codes"] = codes.reshape(-1, m).cpu().numpy().astype(np.int64)
+            index["table"] = table.cpu().double().numpy()
         cell = int(index["order"][np.searchsorted(index["sorted"], i)])
-        return float(table[b].double().cpu()[torch.arange(m), index["codes"][cell]].sum())
+        return float(index["table"][b][np.arange(m), index["codes"][cell]].sum())
 
     return dist_of
 
@@ -1752,18 +1857,36 @@ def _k9_dense_bytes(table, codes, mask) -> int:
     return live * m + (0 if mask is None else n) + b * m * k * 4 + b * n * 4
 
 
+def _check_k9(torch, ivf_pq_scan, ops, rr, what, fn=None) -> float:
+    """K9's probed entry (or ``fn``) against its plain version on ``ops``:
+    scores within _k9_atol, pools by the tie rule, and exactly min(rr, live)
+    places filled, each with an id. Returns the largest |error|."""
+    table, probe, codes, ids, mask = ops
+    got = (fn or ivf_pq_scan.ivf_pq_probe_scan)(table, probe, codes, ids, mask, rr)
+    torch.cuda.synchronize()
+    want = ivf_pq_scan.ivf_pq_probe_scan_plain(table, probe, codes, ids, mask, rr)
+    if not torch.equal(got[1] >= 0, torch.isfinite(got[0])):
+        raise AssertionError(f"{what}: a filled place without an id, or an id at an unfilled one")
+    return check_rows(torch, want, got, _k9_dist_of(torch, table, codes, ids), _k9_atol(torch, table), what)
+
+
 def phase_pq_kernels(torch, ivf_pq_scan, device) -> dict:
     """K9's two entries against their plain versions at every listed shape."""
     gen = torch.Generator().manual_seed(1357)
     worst = worst_d = 0.0
     for b, p, s, m, k, rr, masked in K9_CASES:
-        table, probe, codes, ids, mask = _k9_operands(torch, gen, b, p, s, m, k, masked, device)
-        what = f"K9 probed B={b} p={p} S={s} M={m} K={k} rr={rr} mask={masked}"
-        got = ivf_pq_scan.ivf_pq_probe_scan(table, probe, codes, ids, mask, rr)
-        torch.cuda.synchronize()
-        want = ivf_pq_scan.ivf_pq_probe_scan_plain(table, probe, codes, ids, mask, rr)
-        worst = max(worst, check_rows(torch, want, got, _k9_dist_of(torch, table, codes, ids),
-                                      _k9_atol(torch, table), what))
+        ops = _k9_operands(torch, gen, b, p, s, m, k, masked, device)
+        worst = max(worst, _check_k9(torch, ivf_pq_scan, ops, rr,
+                                     f"K9 probed B={b} p={p} S={s} M={m} K={k} rr={rr} mask={masked}"))
+    chunk = ivf_pq_scan.CHUNK
+    for b, p, s, m, k, rr, masked, layout, ch in K9_LAYOUT_CASES:
+        ops = _k9_operands(torch, gen, b, p, s, m, k, masked, device, layout)
+        ivf_pq_scan.CHUNK = ch or chunk
+        try:
+            worst = max(worst, _check_k9(torch, ivf_pq_scan, ops, rr, f"K9 probed B={b} p={p} S={s} M={m} K={k} "
+                                         f"rr={rr} mask={masked} layout={layout} chunk={ivf_pq_scan.CHUNK}"))
+        finally:
+            ivf_pq_scan.CHUNK = chunk
     for b, n, m, k, masked in K9_DENSE_CASES:
         codes = torch.randint(0, k, (n, m), generator=gen, dtype=torch.uint8).to(device)
         table = torch.randn((b, m, k), generator=gen).to(device)
@@ -1779,7 +1902,20 @@ def phase_pq_kernels(torch, ivf_pq_scan, device) -> dict:
         if err > IVF_RTOL * m * float(table.abs().max()):
             raise AssertionError(f"{what}: |err| {err}")
         worst_d = max(worst_d, err)
-    log(f"[pq-kernels] K9 probed == plain at {len(K9_CASES)} shapes, dense == plain at {len(K9_DENSE_CASES)} "
+    # Repeats at the IVF-PQ cell's shape on normal tables (no equal scores):
+    # every call must give the first call's result bit for bit, where a race
+    # in the block's shared memory would show as a call that differs
+    b, p, s, m, k, rr, masked = K9_CASES[-2]
+    table, probe, codes, ids, mask = _k9_operands(torch, gen, b, p, s, m, k, masked, device)
+    first = ivf_pq_scan.ivf_pq_probe_scan(table, probe, codes, ids, mask, rr)
+    for r in range(K9_REPEATS):
+        again = ivf_pq_scan.ivf_pq_probe_scan(table, probe, codes, ids, mask, rr)
+        if not (torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])):
+            raise AssertionError(f"K9 probed at B={b} p={p} S={s} M={m} K={k} rr={rr}: call {r + 2} differs from call 1")
+    log(f"[pq-kernels] K9 probed at B={b} p={p} S={s} M={m} K={k} rr={rr}: {K9_REPEATS + 1} calls gave the same "
+        f"result bit for bit")
+    log(f"[pq-kernels] K9 probed == plain at {len(K9_CASES)} shapes and {len(K9_LAYOUT_CASES)} layouts "
+        f"({', '.join(sorted({str(c[7]) for c in K9_LAYOUT_CASES}))}), dense == plain at {len(K9_DENSE_CASES)} "
         f"shapes, scores within {IVF_RTOL:g} of M x max|table|, pools by the tie rule; max |err| probed "
         f"{worst:.3g}, dense {worst_d:.3g}")
     return {"k9_err": worst, "k9_dense_err": worst_d}
@@ -1809,9 +1945,12 @@ def _run_annbench(counted, argv, tag: str) -> tuple:
     return res, prof, launches, by_entry, keep
 
 
-def phase_ivfpq_cell(torch, counted, ivf_pq_scan, ivf_rerank) -> dict:
+def phase_ivfpq_cell(torch, counted, ivf_pq_scan, ivf_rerank, baseline=None) -> dict:
     """The IVF-PQ cell through annbench.main, then K9 and K4 on the operands
-    one real search of the cell passes them."""
+    one real search of the cell passes them. With ``baseline`` (another K9
+    library, :func:`load_k9_baseline`) that library is checked on the same
+    operands and timed beside the tree's K9, in turns: baseline, tree, tree,
+    baseline."""
     res, prof, launches, by_entry, keep = _run_annbench(counted, PQ_CELL_ARGV, "ivfpq-cell")
     if res["recall@10"] < PQ_CELL_RECALL or not res["pq"]["active"]:
         raise AssertionError(f"the IVF-PQ cell's recall@10 {res['recall@10']} is below {PQ_CELL_RECALL}, "
@@ -1827,27 +1966,35 @@ def phase_ivfpq_cell(torch, counted, ivf_pq_scan, ivf_rerank) -> dict:
     B, p = probe.shape
     C, S, M = codes.shape
     K = table.shape[2]
-    got = ivf_pq_scan.ivf_pq_probe_scan(*k9_ops)
-    err9 = check_rows(torch, ivf_pq_scan.ivf_pq_probe_scan_plain(*k9_ops), got, _k9_dist_of(torch, table, codes, ids),
-                      _k9_atol(torch, table), "K9 on the IVF-PQ cell")
+    err9 = _check_k9(torch, ivf_pq_scan, k9_ops[:5], rr, "K9 on the IVF-PQ cell")
     q, pool_i = k4_ops[1], k4_ops[2]
     err4 = check_rows(torch, ivf_rerank.ivf_exact_rerank_plain(*k4_ops), ivf_rerank.ivf_exact_rerank(*k4_ops),
                       _k4_dist_of(torch, idx.vectors, q, idx.metric),
                       _k4_atol(torch, idx.vectors[: 1 + int(pool_i.max())], q), "K4 on the IVF-PQ cell")
     nb = _k9_bytes(torch, probe, ids, M, K, rr)
-    t9 = _device_ms(torch, functools.partial(ivf_pq_scan.ivf_pq_probe_scan, *k9_ops), runs=IVF_TIMED_RUNS,
-                    kernel="pq_probe_scan_kernel")
-    t9_plain = _device_ms(torch, functools.partial(ivf_pq_scan.ivf_pq_probe_scan_plain, *k9_ops), runs=3)
     one = (table[:1].contiguous(), probe[:1].contiguous()) + tuple(k9_ops[2:])
-    t9_b1 = _device_ms(torch, functools.partial(ivf_pq_scan.ivf_pq_probe_scan, *one), runs=IVF_TIMED_RUNS,
-                       kernel="pq_probe_scan_kernel")
+    sides = {"": ivf_pq_scan.ivf_pq_probe_scan}
+    if baseline is not None:
+        sides["base_"] = functools.partial(_k9_baseline_call, ivf_pq_scan, baseline)
+        err_base = _check_k9(torch, ivf_pq_scan, k9_ops[:5], rr, "the K9 baseline on the IVF-PQ cell",
+                             fn=sides["base_"])
+    order = ("base_", "", "", "base_") if baseline is not None else ("",)
+    times: dict = {}
+    for tag in order:  # in turns, so that drift in the card's clock falls on both
+        for what, ops in (("ms", k9_ops), ("b1_ms", one)):
+            times.setdefault(tag + what, []).append(_device_ms(
+                torch, functools.partial(sides[tag], *ops), runs=IVF_TIMED_RUNS, kernel=ivf_pq_scan.KERNELS["probed"]))
+    times = {key: float(np.mean(v)) for key, v in times.items()}
+    t9, t9_b1 = times["ms"], times["b1_ms"]
+    t9_plain = _device_ms(torch, functools.partial(ivf_pq_scan.ivf_pq_probe_scan_plain, *k9_ops), runs=3)
     call_b1 = _median_call_ms(torch, functools.partial(ivf_pq_scan.ivf_pq_probe_scan, *one))
     b1_plain = _device_ms(torch, functools.partial(ivf_pq_scan.ivf_pq_probe_scan_plain, *one), runs=3)
     b1_bytes = _k9_bytes(torch, probe[:1], ids, M, K, rr)["bytes"]
     k9 = {"launches": by_entry["probed"], "max_abs_err": err9, "ms": t9, "plain_ms": t9_plain,
           "bound_ms": _bound_ms(nb["bytes"]), "bound_by": "bytes", **nb, "b1_ms": t9_b1, "b1_call_ms": call_b1,
           "b1_plain_ms": b1_plain,
-          "b1_bound_ms": _bound_ms(b1_bytes), "shape": {"B": B, "p": p, "C": C, "S": S, "M": M, "K": K, "rr": rr}}
+          "b1_bound_ms": _bound_ms(b1_bytes), "shape": {"B": B, "p": p, "C": C, "S": S, "M": M, "K": K, "rr": rr},
+          **{key: v for key, v in times.items() if key.startswith("base_")}}
     # The dense entry at the batch's tables over K9_DENSE_ROWS rows, filled
     # with the codes of the cell's first clusters and masked by their NIL
     # slots (the cell's own overflow pool is empty)
@@ -1863,7 +2010,7 @@ def phase_ivfpq_cell(torch, counted, ivf_pq_scan, ivf_rerank) -> dict:
     if err_d > IVF_RTOL * M * float(table.abs().max()):
         raise AssertionError(f"K9 dense on the IVF-PQ cell's codes: |err| {err_d}")
     t9d = _device_ms(torch, functools.partial(ivf_pq_scan.pq_scan, *dense_ops), runs=IVF_TIMED_RUNS,
-                     kernel="pq_scan_dense_kernel")
+                     kernel=ivf_pq_scan.KERNELS["dense"])
     t9d_plain = _device_ms(torch, functools.partial(ivf_pq_scan.pq_scan_plain, *dense_ops), runs=3)
     dense = {"ms": t9d, "plain_ms": t9d_plain, "bound_ms": _bound_ms(_k9_dense_bytes(*dense_ops)),
              "max_abs_err": err_d,
@@ -1879,6 +2026,11 @@ def phase_ivfpq_cell(torch, counted, ivf_pq_scan, ivf_rerank) -> dict:
         f"ms by bytes ({nb['bytes']} B: {nb['distinct_clusters']} distinct probed clusters, {nb['live_slots_distinct']} "
         f"live slots), {k9['bound_ms'] / t9:.1%} of it; plain {t9_plain:.4f} ms; B=1 {t9_b1:.4f} ms on the device "
         f"(bound {k9['b1_bound_ms']:.5f}), {call_b1:.4f} ms a call, plain {b1_plain:.4f} ms")
+    if baseline is not None:
+        log(f"[ivfpq-cell] the K9 baseline == plain on the same operands (max |err| {err_base:.3g}): "
+            f"{times['base_ms']:.4f} ms a call ({k9['bound_ms'] / times['base_ms']:.1%} of the bound), B=1 "
+            f"{times['base_b1_ms']:.4f} ms; the tree's K9 {t9:.4f} and {t9_b1:.4f} ms (each the mean of two windows, "
+            f"in turns base, tree, tree, base): {times['base_ms'] / t9:.2f}x and {times['base_b1_ms'] / t9_b1:.2f}x")
     log(f"[ivfpq-cell] K9 dense == plain on the cell's tables over the codes of its first clusters "
         f"{dense['shape']} (max |err| {err_d:.3g}): {t9d:.4f} ms (bound {dense['bound_ms']:.4f}, "
         f"{dense['bound_ms'] / t9d:.1%} of it); plain {t9d_plain:.4f} ms")
@@ -1906,14 +2058,15 @@ def phase_fused_cell(torch, counted, ivf_scan, ivf_rerank) -> dict:
     t4 = _k4_times(torch, ivf_rerank, kc["k4_ops"])
     k3 = {"ms": kc["t3"]["ms"], "plain_ms": kc["t3_plain"], "bound_ms": _bound_ms(kc["k3_bytes"]["distinct"]),
           "max_abs_err": kc["err3"], "launches": launches["K3"], "call_ms": kc["k3_call"],
-          "shape": {key: kc[key] for key in ("B", "p", "S", "r", "rr")}, "slab_dtype": res["slab_dtype"]}
+          "shape": {key: kc[key] for key in ("B", "p", "S", "r", "rr")}, "slab_dtype": res["slab_dtype"],
+          **{key: kc["t3"][key] for key in ("event_ms", "share", "measured_by")}}
     k4 = {"plain_ms": kc["t4_plain"], "bound_ms": _bound_ms(kc["k4_bytes"]), "max_abs_err": kc["err4"],
           "launches": launches["K4"], "route": "element", "D": fused.aug_dim, "dedup": kc["dedup"], **t4}
     log(f"[fused-cell] launches {launches}; K3 == plain and K4 == plain on the cell's operands "
         f"({k3['shape']}, {res['slab_dtype']}); max |err| K3 {kc['err3']:.3g}, K4 {kc['err4']:.3g}")
     log(f"[fused-cell] K3 {k3['ms']:.4f} ms a call (bound {k3['bound_ms']:.4f}, {k3['bound_ms'] / k3['ms']:.1%}); "
-        f"a call with its host work {k3['call_ms']:.4f} ms (CUDA events), {k3['ms'] / k3['call_ms']:.1%} of it; "
-        f"plain {k3['plain_ms']:.4f} ms")
+        f"from the {k3['measured_by']}, the same calls by CUDA events {k3['event_ms']:.4f} ms; a call with its "
+        f"host work {k3['call_ms']:.4f} ms; plain {k3['plain_ms']:.4f} ms")
     log("[fused-cell] " + _k4_line("K4 on its element route at D = 194", t4, k4["bound_ms"])
         + f"; plain {k4['plain_ms']:.4f} ms")
     return {"res": res, "profile": prof, "k3": k3, "k4": k4}
@@ -2019,7 +2172,7 @@ def phase_pq_fused_http(torch, counted, device, seed: int, n_points: int = HTTP_
             table = flat.store.prepare_queries(torch.from_numpy(ds1.test[:1]).to(device))
             dense_ops = (table, st.codes, flat.exists.view(torch.uint8))
             t9d = _device_ms(torch, functools.partial(ivf_pq_scan.pq_scan, *dense_ops), runs=IVF_TIMED_RUNS,
-                             kernel="pq_scan_dense_kernel")
+                             kernel=ivf_pq_scan.KERNELS["dense"])
             t9d_plain = _device_ms(torch, functools.partial(ivf_pq_scan.pq_scan_plain, *dense_ops), runs=3)
             call_ms = _median_call_ms(torch, functools.partial(ivf_pq_scan.pq_scan, *dense_ops))
             err = float((ivf_pq_scan.pq_scan(*dense_ops) - ivf_pq_scan.pq_scan_plain(*dense_ops))
@@ -2042,6 +2195,16 @@ def phase_pq_fused_http(torch, counted, device, seed: int, n_points: int = HTTP_
     return {"recall": recall, "launches": launches, "k9_by_entry": by_entry, "dense": dense}
 
 
+def _phase(name: str, fn, *args, **kwargs):
+    """Run one phase between a line that says it starts and one that says it
+    passed, so that a failure can be placed."""
+    log(f"[phase {name}] start")
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    log(f"[phase {name}] passed in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _zero_counts(counted) -> None:
     """Every kernel's launch count to 0, before a path is driven."""
     for _, mod in counted:
@@ -2057,6 +2220,9 @@ def main() -> int:
     parser.add_argument("--k4-baseline", metavar="SOURCE",
                         help="another K4 source (ivf_rerank.cu, its ivf_common.cuh beside it), e.g. the parent "
                              "commit's, timed beside the tree's K4 in phases 8 and 8c")
+    parser.add_argument("--k9-baseline", metavar="SOURCE",
+                        help="another K9 source (ivf_pq_scan.cu, with any ivf_common.cuh beside it), e.g. the "
+                             "parent commit's, checked and timed beside the tree's K9 in phase 11")
     args = parser.parse_args()
 
     sys.modules["jax"] = None  # this script and the port never import jax
@@ -2070,29 +2236,33 @@ def main() -> int:
 
     device = torch.device("cuda")
     t_start = time.perf_counter()
-    env = phase_environment(torch)
-    hamming, gather, ivf_scan, ivf_rerank, ivf_pq_scan = phase_build()
+    env = _phase("1 environment", phase_environment, torch)
+    hamming, gather, ivf_scan, ivf_rerank, ivf_pq_scan = _phase("1 build", phase_build)
     counted = (("K1", hamming), ("K2", gather), ("K3", ivf_scan), ("K4", ivf_rerank), ("K9", ivf_pq_scan))
-    worst = phase_kernel(torch, hamming, device)
-    sl = phase_slice(torch, hamming, gather, device, args.seed)
-    timing = phase_timing(torch, hamming, sl["codes"], sl["qcodes"])
+    worst = _phase("2 K1 against its plain version", phase_kernel, torch, hamming, device)
+    sl = _phase("3 the BQ slice over HTTP", phase_slice, torch, hamming, gather, device, args.seed)
+    timing = _phase("4 K1 timing", phase_timing, torch, hamming, sl["codes"], sl["qcodes"])
     by_b = timing["by_b"]
     t64 = by_b[64]
-    g_worst = phase_gather_kernel(torch, gather, device)
-    gb = phase_gatherbench(torch, hamming, gather)
-    kerr = phase_ivf_kernels(torch, ivf_scan, ivf_rerank, device)
-    pqerr = phase_pq_kernels(torch, ivf_pq_scan, device)
+    g_worst = _phase("5 K2 against its plain version", phase_gather_kernel, torch, gather, device)
+    gb = _phase("6 gatherbench", phase_gatherbench, torch, hamming, gather)
+    kerr = _phase("7 K3 and K4 against their plain versions", phase_ivf_kernels, torch, ivf_scan, ivf_rerank, device)
+    pqerr = _phase("7 K9 against its plain version", phase_pq_kernels, torch, ivf_pq_scan, device)
     baseline = load_k4_baseline(args.k4_baseline) if args.k4_baseline else None
-    cell = phase_ivf_cell(torch, counted, baseline=baseline)
-    proj = phase_k4_projected(torch, ivf_rerank, args.seed, baseline)
-    phase_ivf_http(torch, counted, device, args.seed)
-    hybrid = phase_hybrid(torch, counted, device, args.seed)
-    wide = phase_wide_filter(torch, counted, cell["index"], cell["queries"], args.seed)
+    k9_baseline = load_k9_baseline(args.k9_baseline) if args.k9_baseline else None
+    cell = _phase("8 the IVF cell", phase_ivf_cell, torch, counted, baseline=baseline)
+    proj = _phase("8 K4 at the projected shape", phase_k4_projected, torch, ivf_rerank, args.seed, baseline)
+    _phase("8b vectorIVF over HTTP", phase_ivf_http, torch, counted, device, args.seed)
+    hybrid = _phase("9 the hybrid collection over HTTP", phase_hybrid, torch, counted, device, args.seed)
+    wide = _phase("9 the widened-probe filter", phase_wide_filter, torch, counted, cell["index"], cell["queries"],
+                  args.seed)
     del cell["index"], cell["queries"]
-    big = phase_ivf_10m(torch, counted)
-    pqcell = phase_ivfpq_cell(torch, counted, ivf_pq_scan, ivf_rerank)
-    fcell = phase_fused_cell(torch, counted, ivf_scan, ivf_rerank)
-    http = phase_pq_fused_http(torch, counted, device, args.seed)
+    big = _phase("10 the 10M cell", phase_ivf_10m, torch, counted)
+    pqcell = _phase("11 the IVF-PQ cell", phase_ivfpq_cell, torch, counted, ivf_pq_scan, ivf_rerank, k9_baseline)
+    fcell = _phase("12 the fused cell", phase_fused_cell, torch, counted, ivf_scan, ivf_rerank)
+    http = _phase("13 PQ and fused over HTTP", phase_pq_fused_http, torch, counted, device, args.seed)
+    log(f"[profiler] times reported by CUDA events after every window lost its kernels (P2): "
+        f"{len(EVENT_FALLBACKS)} {EVENT_FALLBACKS}")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     ivf_shape = (f"the IVF bench cell's operands: B={cell['res']['batch']} queries, p={cell['res']['probes']}, "
                  f"C={cell['res']['clusters']}, S={cell['res']['slab']}, {cell['res']['slab_dtype']} slabs; "
@@ -2147,8 +2317,7 @@ def main() -> int:
         "kernels_per_call": cell["k3"]["kernels_per_call"],
         "by_kernel_ms": cell["k3"]["by_kernel_ms"],
         "b_sweep_ms": {str(b): v for b, v in cell["k3"]["b_sweep_ms"].items()},
-        "b1_call_ms": cell["k3"]["b1_call_ms"],
-        "call_ms": cell["k3"]["call_ms"],
+        **{key: cell["k3"][key] for key in ("b1_call_ms", "call_ms", "event_ms", "share", "measured_by")},
         "bound_bytes": cell["k3"]["bytes"],
         "per_query_bound_ms": cell["k3"]["per_query_bound_ms"],
         "launches_hybrid": hybrid["launches"]["K3"],
@@ -2188,8 +2357,9 @@ def main() -> int:
         "library": LIBRARY_NONE_K9,
         "shape": ("the IVF-PQ cell's operands: " + json.dumps(pqcell["k9"]["shape"])
                   + f"; device time per call, mean of {IVF_TIMED_RUNS}"),
-        **{key: pqcell["k9"][key] for key in ("bytes", "distinct_clusters", "live_slots_distinct", "b1_ms",
-                                              "b1_call_ms", "b1_bound_ms", "b1_plain_ms")},
+        **{key: v for key, v in pqcell["k9"].items() if key in (
+            "bytes", "distinct_clusters", "live_slots_distinct", "b1_ms", "b1_call_ms", "b1_bound_ms", "b1_plain_ms")
+            or key.startswith("base_")},
         "launches_http": http["k9_by_entry"].get("probed", 0),
     }, {
         "name": "K9 pq_scan (dense ADC scan: flat PQ and the IVF-PQ overflow pool)",

@@ -1,7 +1,10 @@
 """Shard manager: load/unload shards with idle cleanup and backup hooks.
 
 Port of ``semadb_tpu/cluster/shardmgr.py`` over the port's Shard: every
-shard it loads puts its device indices on the manager's ``device``.
+shard it loads puts its device indices on the manager's ``device``. Unlike
+the reference, an entry has one idle timer at a time and a cleanup acts
+only on the entry whose timer fired: in the reference, two overlapping
+requests arm two timers, and both cleanups close the same shard.
 
 Parity reference: cluster/shardmgr.go — DoWithShard(collection, shardId, fn)
 loads the shard on demand, holds a read lock during the operation (so a
@@ -111,19 +114,25 @@ class ShardManager:
             with self._mu:
                 ms.in_use -= 1
                 if self._shards.get(shard_id) is ms:
+                    # One idle timer an entry: a timer left armed by an
+                    # overlapping request would fire a second cleanup
+                    # that closes the shard twice
+                    if ms.timer is not None:
+                        ms.timer.cancel()
                     t = threading.Timer(
-                        self.shard_timeout, self._cleanup, args=(col, shard_id)
+                        self.shard_timeout, self._cleanup, args=(col, shard_id, ms)
                     )
                     t.daemon = True
                     ms.timer = t
                     t.start()
 
-    def _cleanup(self, col: Collection, shard_id: str) -> None:
+    def _cleanup(self, col: Collection, shard_id: str, ms: ManagedShard) -> None:
         """Idle unload + backup hook (shardmgr.go cleanupRoutine + backup on
-        unload gated by plan, shardmgr.go:134-138)."""
+        unload gated by plan, shardmgr.go:134-138) of the entry whose timer
+        fired. A timer that fired but lost the race to cancel() finds its
+        entry busy, closing, or gone, and does nothing."""
         with self._mu:
-            ms = self._shards.get(shard_id)
-            if ms is None or ms.in_use > 0:
+            if self._shards.get(shard_id) is not ms or ms.in_use > 0 or ms.closing:
                 return  # busy: the active request re-arms the timer on exit
             # Keep the entry visible but marked: a request arriving during
             # the (possibly long) close below waits on closed_ev instead

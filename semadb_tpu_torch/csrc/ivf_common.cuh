@@ -1,7 +1,8 @@
-// Pieces shared by the IVF query kernels K3 (ivf_scan.cu), K4
-// (ivf_rerank.cu) and K9 (ivf_pq_scan.cu): the team of lanes that scores one
-// row, bf16 unpacking, the bitonic sort, and the running top-rr that K3's
-// merge and K9 keep in shared memory (warp_append, keep_top, make_room).
+// Pieces shared by the IVF query kernels K3 (ivf_scan.cu) and K4
+// (ivf_rerank.cu): the team of lanes that scores one row, bf16 unpacking,
+// the bitonic sort, and the running top-rr that K3's merge keeps in shared
+// memory (warp_append, keep_top, make_room). K9 (ivf_pq_scan.cu) keeps its
+// own selection.
 //
 // A "team" is ts lanes of one warp (ts a power of two, 1..32) that score one
 // row together: each lane takes every ts-th unit of the row (a unit is 16

@@ -7,8 +7,7 @@ that score the probed code slabs (``:579-605``) and take the pool, and of
 f32[M, K], one row of K centroid distances per subvector, and a row whose
 codes are u8[M] scores sum_m table[m, code[m]].
 
-One source (``semadb_tpu_torch/csrc/ivf_pq_scan.cu``, with
-``csrc/ivf_common.cuh``), two entries:
+One source (``semadb_tpu_torch/csrc/ivf_pq_scan.cu``), two entries:
 
 - :func:`ivf_pq_probe_scan`: ``table`` f32[B, M, K] x ``probe`` i32[B, p] x
   ``slab_codes`` u8[C, S, M] x ``slab_ids`` i32[C, S] (x ``mask`` u8[n]) →
@@ -39,15 +38,21 @@ import torch
 from semadb_tpu_torch.utils.build import CSRC_DIR, NVCC_FLAGS, build_library, nvcc
 
 SOURCE = os.path.join(CSRC_DIR, "ivf_pq_scan.cu")
-HEADERS = (os.path.join(CSRC_DIR, "ivf_common.cuh"),)
 MAX_RR = 2048
 MAX_K = 256  # codes are u8
-# Shared memory a block may take on the H100 (227 KB): the query's table and
-# the selection buffer of the probed entry
+# Shared memory a block may take on the H100 (227 KB): the query's table and,
+# in the probed entry, the chunk's keys and two kept sets
 SMEM_BYTES = 227 * 1024
-# Slots the probed entry's block scores between two looks at its buffer
-TILE = 256 * 4
+# The probed entry's block: its threads, and what it holds in static shared
+# memory (the radix histogram and a few counters; an upper bound)
+THREADS = 256
+STATIC_SMEM = 2048
+# Most slots the probed entry scores between two selections (a multiple of
+# THREADS); fewer where shared memory runs short
+CHUNK = 4096
 NIL = -1
+# The device kernels' names (profiler events hold them), by entry
+KERNELS = {"probed": ("pq_probe_scan_kernel",), "dense": ("pq_scan_dense_kernel",)}
 # Elements of the [B, rows, M] gather per step of the plain versions
 PLAIN_CHUNK = 1 << 26
 
@@ -116,13 +121,23 @@ def pq_scan_plain(table: torch.Tensor, codes: torch.Tensor, mask: Optional[torch
     return out
 
 
-def _nbuf(rr: int) -> int:
-    """Entries of the probed entry's selection buffer: a power of two with
-    room for the rr kept and one tile's appends."""
-    n = 1024
-    while n < rr + TILE:
+def _cap(rr: int) -> int:
+    """Entries of each of the probed entry's two kept sets: the power of two
+    at or above rr (the final sort's width)."""
+    n = 1
+    while n < rr:
         n <<= 1
     return n
+
+
+def _chunk(slots: int, mk: int, rr: int) -> int:
+    """Slots the probed entry's block scores between two selections: all of
+    a query's ``slots`` up to CHUNK, in whole THREADS, and no more than the
+    shared memory beside the table (``mk`` floats) and the kept sets holds;
+    0 when not even THREADS fit."""
+    room = (SMEM_BYTES - STATIC_SMEM) // 4 - mk - 4 * _cap(rr)
+    want = min(CHUNK, -(-max(slots, 1) // THREADS) * THREADS)
+    return min(want, room // THREADS * THREADS)
 
 
 def _on_cuda(tensors, what: str) -> bool:
@@ -155,6 +170,19 @@ def ivf_pq_probe_scan(
     if not _on_cuda(tensors, "K9"):
         return ivf_pq_probe_scan_plain(table, probe, slab_codes, slab_ids, mask, rr)
     _check_probed(table, probe, slab_codes, slab_ids, mask, rr)
+    B = probe.shape[0]
+    chunk = _chunk(probe.shape[1] * slab_codes.shape[1], table.shape[1] * table.shape[2], rr)
+    out = launch_probed(_library() if B else None, table, probe, slab_codes, slab_ids, mask, rr, chunk)
+    if B:
+        _count("probed")
+    return out
+
+
+def launch_probed(lib, table, probe, slab_codes, slab_ids, mask, rr: int, work: int):
+    """One launch of a probed-entry library (:func:`bind`) on checked,
+    contiguous operands on one CUDA device (none for an empty batch, which
+    needs no ``lib``); ``work`` is the int the C interface takes after rr
+    (this source's chunk). Counts nothing; raises if it is refused."""
     B, p = probe.shape
     C, S, M = slab_codes.shape
     K = table.shape[2]
@@ -163,20 +191,18 @@ def ivf_pq_probe_scan(
     out_i = torch.empty((B, rr), dtype=torch.int32, device=dev)
     if B == 0:
         return out_d, out_i
-    lib = _library()
     with torch.cuda.device(dev):
         rc = lib.semadb_pq_probe_scan(
             table.data_ptr(), probe.data_ptr(), slab_codes.data_ptr(), slab_ids.data_ptr(),
             None if mask is None else mask.data_ptr(), 0 if mask is None else mask.shape[0],
-            B, p, C, S, M, K, rr, _nbuf(rr), out_d.data_ptr(), out_i.data_ptr(),
+            B, p, C, S, M, K, rr, work, out_d.data_ptr(), out_i.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(
             f"K9 probed launch failed ({rc}: {lib.semadb_pq_error_string(rc).decode()}) "
-            f"at B={B} p={p} C={C} S={S} M={M} K={K} rr={rr}"
+            f"at B={B} p={p} C={C} S={S} M={M} K={K} rr={rr} work={work}"
         )
-    _count("probed")
     return out_d, out_i
 
 
@@ -227,7 +253,7 @@ def _check_probed(table, probe, slab_codes, slab_ids, mask, rr) -> None:
         raise TypeError(f"mask must be 1-D uint8, got {mask.dtype} {tuple(mask.shape)}")
     if not 1 <= rr <= MAX_RR:
         raise ValueError(f"rr must lie in [1, {MAX_RR}], got {rr}")
-    if M * table.shape[2] * 4 + _nbuf(rr) * 8 > SMEM_BYTES:
+    if _chunk(probe.shape[1] * S, M * table.shape[2], rr) < THREADS:
         raise ValueError(f"a table of M={M} x K={table.shape[2]} and a pool of {rr} exceed one block's shared memory")
 
 
@@ -241,20 +267,24 @@ def _check_dense(table, codes, mask) -> None:
         raise ValueError(f"a table of {tuple(table.shape[1:])} exceeds one block's shared memory")
 
 
+def bind(path: str):
+    """Load a library built from a K9 source with this C interface."""
+    lib = ctypes.CDLL(path)
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.semadb_pq_probe_scan.restype = i32
+    lib.semadb_pq_probe_scan.argtypes = [ptr, ptr, ptr, ptr, ptr, i64] + [i32] * 8 + [ptr, ptr, ptr]
+    lib.semadb_pq_scan_dense.restype = i32
+    lib.semadb_pq_scan_dense.argtypes = [ptr, ptr, ptr, i32, i64, i32, i32, ptr, ptr]
+    lib.semadb_pq_error_string.restype = ctypes.c_char_p
+    lib.semadb_pq_error_string.argtypes = [i32]
+    return lib
+
+
 def _library():
     """Build (once per source hash) and load the kernel library."""
     global _LIB, BUILD_LOG
     with _LOCK:
-        if _LIB is not None:
-            return _LIB
-        path, BUILD_LOG = build_library("ivf_pq_scan", SOURCE, nvcc(), NVCC_FLAGS, HEADERS)
-        lib = ctypes.CDLL(path)
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.semadb_pq_probe_scan.restype = i32
-        lib.semadb_pq_probe_scan.argtypes = [ptr, ptr, ptr, ptr, ptr, i64] + [i32] * 8 + [ptr, ptr, ptr]
-        lib.semadb_pq_scan_dense.restype = i32
-        lib.semadb_pq_scan_dense.argtypes = [ptr, ptr, ptr, i32, i64, i32, i32, ptr, ptr]
-        lib.semadb_pq_error_string.restype = ctypes.c_char_p
-        lib.semadb_pq_error_string.argtypes = [i32]
-        _LIB = lib
-        return lib
+        if _LIB is None:
+            path, BUILD_LOG = build_library("ivf_pq_scan", SOURCE, nvcc(), NVCC_FLAGS)
+            _LIB = bind(path)
+        return _LIB

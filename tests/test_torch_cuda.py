@@ -493,6 +493,65 @@ def test_pq_probe_scan_matches_plain(cuda, b, p, s, m, k, rr, masked, offset):
     _pools_agree(want, got, dist_of, atol)
 
 
+# K9's probed entry at the layouts that stress its selection (B, p, S, M, K,
+# rr, mask, layout, chunk): a cluster probed twice with probes of -1 and C;
+# tie-heavy integer tables (K = 16, M = 2); negative tables; clusters with no
+# live slot, and none at all; rr above the live slots (85% NIL); chunk, when
+# given, patched small so that a query takes several selections
+PQ_LAYOUT_CASES = [
+    (7, 24, 128, 8, 256, 256, True, "dup-probes", None), (64, 24, 64, 2, 16, 256, False, "ties", None),
+    (256, 24, 128, 2, 16, 2048, False, "ties", None), (7, 40, 128, 2, 16, 20, True, "ties", 256),
+    (7, 24, 128, 8, 256, 64, False, "negative", None), (64, 24, 128, 8, 256, 256, True, "all-nil", None),
+    (3, 24, 128, 8, 256, 256, False, "nil", None), (4096, 24, 128, 8, 256, 2048, False, "sparse", None),
+    (1, 5, 64, 4, 16, 256, True, "sparse", None), (7, 24, 128, 8, 256, 256, True, None, 256),
+    (64, 96, 128, 4, 16, 64, False, "negative", 512),
+]
+
+
+def _pq_layout(gen, table, probe, ids, layout):
+    c = ids.shape[0]
+    if layout == "sparse":
+        ids[torch.rand(ids.shape, generator=gen) < 0.8] = -1
+    elif layout == "all-nil":
+        ids[torch.rand(c, generator=gen) < 0.5] = -1
+    elif layout == "nil":
+        ids[:] = -1
+    if layout == "ties":
+        table = torch.randint(-2, 3, table.shape, generator=gen).float()
+    elif layout == "negative":
+        table = -1.0 - table.abs()
+    if layout == "dup-probes":
+        probe[:, 1], probe[:, 2], probe[:, 3] = probe[:, 0], -1, c
+    return table, probe, ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,p,s,m,k,rr,masked,layout,chunk", PQ_LAYOUT_CASES)
+def test_pq_probe_scan_layouts_match_plain(cuda, monkeypatch, b, p, s, m, k, rr, masked, layout, chunk):
+    """Every layout: scores within the tolerance, pools by the tie rule, and
+    exactly min(rr, live) places filled, each with an id."""
+    gen = torch.Generator().manual_seed(b + 7 * p + s + m + rr)
+    table, probe, codes, ids, mask = _pq_operands(gen, b, p, s, m, k, masked, 0)
+    table, probe, ids = _pq_layout(gen, table, probe, ids, layout)
+    if chunk:
+        monkeypatch.setattr(ivf_pq_scan, "CHUNK", chunk)
+    ops = [t if t is None else t.to(cuda) for t in (table, probe.contiguous(), codes, ids, mask)]
+    got = ivf_pq_scan.ivf_pq_probe_scan(*ops, rr)
+    torch.cuda.synchronize()
+    want = ivf_pq_scan.ivf_pq_probe_scan_plain(*ops, rr)
+    assert torch.equal(got[1] >= 0, torch.isfinite(got[0]))
+    assert torch.equal(torch.isfinite(got[0]), torch.isfinite(want[0]))
+    cell_of = {i: c for c, i in enumerate(ids.reshape(-1).tolist()) if i >= 0}
+    cflat = codes.reshape(-1, m).long()
+    tab = table.double()
+
+    def dist_of(bb, i):
+        return float(tab[bb][torch.arange(m), cflat[cell_of[i]]].sum())
+
+    atol = torch.full((b,), IVF_RTOL * m * float(table.abs().max()))
+    _pools_agree(want, got, dist_of, atol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,m,k,masked,offset", [
     (1, 1, 8, 256, False, 0), (3, 100003, 8, 256, True, 0), (64, 4096, 16, 16, True, 0),

@@ -92,11 +92,9 @@ def test_vector_store_scan_matches_jax(cfg):
     assert np.isinf(got[:, ~live]).all()
 
 
-def test_product_quantizer_not_ported_yet():
+def test_flat_index_fits_product_quantizer_at_its_trigger():
     """A flat index takes a product store and fits it at its trigger
-    (``tests/test_torch_pq.py`` holds it against the JAX package). The name
-    is kept from when the port refused the product quantizer, so that the
-    test's record runs on."""
+    (``tests/test_torch_pq.py`` holds it against the JAX package)."""
     q = port_models.Quantizer(type="product", product=port_models.ProductQuantizerParams(
         num_centroids=16, num_subvectors=8, trigger_threshold=200, opq=False))
     params = port_models.VectorFlatParams(vector_size=DIM, distance_metric="euclidean", quantizer=q)

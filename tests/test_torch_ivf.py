@@ -567,11 +567,10 @@ def test_jax_written_ivf_shard_opens_in_port(tmp_path, journal):
         assert {str(uuid.UUID(int=4)), str(uuid.UUID(int=1201))}.isdisjoint(p["_id"] for p in grow)
 
 
-def test_product_quantizer_on_ivf_is_refused():
+def test_product_quantizer_on_ivf_is_admitted_and_vamana_refused():
     """The manager admits a product quantizer on vectorIVF and the engine
     takes it (``tests/test_torch_ivfpq.py`` holds it against the JAX
-    package); vectorVamana is still refused by name. The name is kept from
-    when the port refused IVF-PQ, so that the test's record runs on."""
+    package); vectorVamana is still refused by name."""
     schema = port_models.IndexSchema.from_dict({"v": {"type": "vectorIVF", "vectorIVF": {
         "vectorSize": 16, "distanceMetric": "euclidean",
         "quantizer": {"type": "product", "product": {"numCentroids": 16, "numSubVectors": 4}}}}})

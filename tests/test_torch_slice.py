@@ -275,7 +275,7 @@ def test_jax_replays_port_journal(tmp_path):
     shard.close()
 
 
-def test_port_refuses_unported_index_types(tmp_path):
+def test_port_admits_fused_and_pq_and_refuses_vamana(tmp_path):
     """vectorVamana is still refused by name; vectorFused and a product
     quantizer, ported since, are admitted."""
     node, srv, base = _start("port", str(tmp_path))
