@@ -11,9 +11,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. Environment and build: the card (``nvidia-smi``), torch and CUDA versions,
    the codecs, then K1 (``semadb_tpu_torch/csrc/hamming.cu``), K2
    (``csrc/gather.cu``), K3 (``csrc/ivf_scan.cu``), K4
-   (``csrc/ivf_rerank.cu``) and K9 (``csrc/ivf_pq_scan.cu``) built with
+   (``csrc/ivf_rerank.cu``), K9 (``csrc/ivf_pq_scan.cu``), K10
+   (``csrc/vamana_search.cu``) and K11 (``csrc/vamana_prune.cu``) built with
    ``nvcc`` and the key-value store (``csrc/kvstore.cpp``) with ``g++`` from
-   the checkout's sources, all six at once, timed.
+   the checkout's sources, all eight at once, timed.
 2. Kernel: K1 against its plain PyTorch version on the card, hamming and
    jaccard, on both of its routes (tensor cores and CUDA cores), at B in
    {1, 2, 7, 8, 15, 16, 17, 33, 64, 1000} (both sides of the route
@@ -195,9 +196,54 @@ Phases, each of which fails the run (non-zero exit, no result line):
    relative). K9's two entries, K3 and K4 must have launched; K9's dense
    entry is timed at the flat index's shape.
 
+14. K10 (the Vamana beam search, ``csrc/vamana_search.cu``) and K11 (the
+   robust prune, ``csrc/vamana_prune.cu``) against their plain PyTorch
+   versions on the card, on integer-valued graphs and pools (every
+   coordinate an integer in [-8, 8], so every distance is exact in f32),
+   every output bit for bit: K10's candidate lists, visited rings, hops and
+   counts at L in {25, 40, 75, 100, 512}, W in {1, 2, 8}, R in {32, 64}, B
+   in {1, 7, 512, 4096, 8192}, with and without seeds and the ring, a graph
+   of mostly NIL-padded rows and a graph of one point, all four metrics (15
+   cases), and 51 repeated calls at the query and pass-1 shapes; K11's rows
+   at B in {1, 7, 512, 4096}, P in {128, 160, 224, 1500}, R in {32, 64},
+   all four metrics, D = 1536, alpha 1.0 and 1.2 (18 cases), and 51 repeated
+   calls at pass 2's shape. On real-valued data: K10's top-10 by the tie
+   rule within 1e-5 of the terms' magnitude and recall@10 within 0.002 of
+   the plain version's (B = 2,048 over 100,000 points, euclidean and
+   cosine); K11 at least 99% of the rows equal (a decision at a near-tie may
+   part).
+15. The Vamana cell: ``BENCH_MODE=plain python bench.py`` on the port,
+   ``annbench.main(["--engine", "vamana"])``: 1,000,000 x 128
+   ``embedding_like(spread=0.5, seed=42)``, euclidean, the graph at
+   searchSize 75, degreeBound 64, alpha 1.2 built by the two-pass
+   ``insert_bulk``, 32,768 queries in batches of 8,192 at L = 40, W = 2,
+   k = 10. Recall@10 against the exact f32 ground truth must be >= 0.98
+   (the JAX package read 0.9989); K10 and K11 must have launched; it prints
+   the build's seconds by pass and overflow rounds, QPS (best of 3), hops a
+   query, peak memory and one batch under torch.profiler. Then K10 on the
+   cell's first batch (its entry seeds) and at pass 1's walk (B = 512,
+   L = 75, W = 8), and K11 on pools the insert makes from the cell's graph
+   at pass 2's shape (B = 4,096, P = 224) and pass 1's (B = 512, P = 160):
+   checked against the plain versions as in phase 14, timed (profiler,
+   mean of 10 calls, the CUDA-event fallback of P2), the plain versions
+   timed, the bounds from the kernels' own counts.
+16. v1 and v2 over HTTP with ``config/singleServer.yaml``, one shard each: a
+   v1 collection (vectorSize 128, euclidean) and a v2 ``vectorVamana``
+   collection with a ``string`` property, 20,000 ``embedding_like`` points
+   each (1,000 over HTTP, the rest through ``ClusterNode.insert_points``).
+   Ten single searches of each, a batch of ten and ten filtered searches
+   (v2): every distance numpy's within 1e-5 relative, recall@10 >= 0.95.
+   Then 1,000 deletes and 1,000 updates a collection over HTTP: no deleted
+   id may come back, the same checks hold, 20 updated points find
+   themselves; a quantized ``vectorVamana`` must be refused naming slice 13.
+   Then a flush (the dirty-row snapshot), close and reopen: every search
+   must answer the same. K10 and K11 must have launched.
+
 Each kernel's bound is its bytes (each input read once, each output
 written once; for K2 each distinct row once; for K3 each distinct probed
-cluster once, for K4 each distinct live pool row once; for K9 each query's
+cluster once, for K4 each distinct live pool row once; for K10 every row it
+scored and every adjacency row it read, from its own counts; for K11 each
+live candidate's row once; for K9 each query's
 table once, each distinct probed cluster's ids once and the codes of its
 live slots once) over 3.35 TB/s, from this run's inputs. K2 does no arithmetic. K1's work is bit operations, and the
 card's data sheet gives no rate for the tensor cores' single-bit MMA, so
@@ -278,8 +324,10 @@ def phase_environment(torch) -> dict:
 
 
 def phase_build():
-    """Build K1-K4, K9 and the key-value store at once, one compiler each."""
-    from semadb_tpu_torch.ops.kernels import gather, hamming, ivf_pq_scan, ivf_rerank, ivf_scan
+    """Build K1-K4, K9-K11 and the key-value store at once, one compiler each."""
+    from semadb_tpu_torch.ops.kernels import (
+        gather, hamming, ivf_pq_scan, ivf_rerank, ivf_scan, vamana_prune, vamana_search,
+    )
     from semadb_tpu_torch.store import native
     from semadb_tpu_torch.utils.build import BUILD_DIR
 
@@ -289,7 +337,8 @@ def phase_build():
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    kernels = (("K1", hamming), ("K2", gather), ("K3", ivf_scan), ("K4", ivf_rerank), ("K9", ivf_pq_scan))
+    kernels = (("K1", hamming), ("K2", gather), ("K3", ivf_scan), ("K4", ivf_rerank), ("K9", ivf_pq_scan),
+               ("K10", vamana_search), ("K11", vamana_prune))
     with ThreadPoolExecutor(len(kernels) + 1) as pool:
         jobs = {name: pool.submit(timed, mod._library) for name, mod in kernels}
         jobs["kvstore"] = pool.submit(timed, native.load_library)
@@ -304,7 +353,7 @@ def phase_build():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
     log(f"[build] kvstore {native.SOURCE}: loaded in {took['kvstore']:.2f} s")
-    return hamming, gather, ivf_scan, ivf_rerank, ivf_pq_scan
+    return hamming, gather, ivf_scan, ivf_rerank, ivf_pq_scan, vamana_search, vamana_prune
 
 
 def _check_k1(torch, hamming, q, x, what: str) -> float:
@@ -2195,6 +2244,403 @@ def phase_pq_fused_http(torch, counted, device, seed: int, n_points: int = HTTP_
     return {"recall": recall, "launches": launches, "k9_by_entry": by_entry, "dense": dense}
 
 
+# -- the Vamana engine: K10, K11, the cell, v1 and v2 over HTTP -------------------
+
+VAMANA_RTOL = 1e-5  # of the magnitude of the summed terms (real-valued data)
+VAMANA_RECALL_GAP = 0.002  # kernel against plain version, real-valued data
+VAMANA_REPEATS = 51
+VAMANA_TIMED_RUNS = 10
+VAMANA_CELL_RECALL = 0.98  # the JAX package read 0.9989 here (TPU history, BENCHMARKS.md:423-424)
+HTTP_VAMANA_POINTS = 20_000
+HTTP_VAMANA_RECALL = 0.95
+HTTP_VAMANA_WRITES = 1_000
+LIBRARY_NONE_K10 = "none: no one PyTorch call walks a graph"
+LIBRARY_NONE_K11 = "none: no one PyTorch call prunes a pool"
+# K10 on integer-valued graphs, every output bit for bit: (B, L, W, R,
+# metric, seeds, track_visited, graph); "nil": 90% of the rows keep a random
+# number of edges, "one": a graph of one user point
+K10_CASES = [
+    (1, 25, 1, 32, "euclidean", False, True, "random"), (7, 40, 2, 64, "euclidean", True, False, "random"),
+    (8192, 40, 2, 64, "euclidean", True, False, "random"), (512, 75, 8, 64, "euclidean", False, True, "random"),
+    (4096, 75, 8, 64, "euclidean", True, True, "random"), (7, 100, 2, 64, "dot", True, False, "random"),
+    (7, 100, 8, 64, "cosine", False, True, "random"), (7, 40, 2, 32, "haversine", True, True, "random"),
+    (7, 512, 8, 64, "euclidean", True, True, "random"), (1, 512, 1, 32, "euclidean", False, False, "random"),
+    (7, 75, 8, 64, "euclidean", False, True, "nil"), (7, 25, 8, 32, "euclidean", True, True, "one"),
+    (8192, 40, 2, 64, "cosine", True, False, "random"), (512, 75, 8, 64, "dot", False, True, "random"),
+    (7, 40, 2, 64, "haversine", False, False, "random"),
+]
+K10_REPEAT_CASES = (2, 3)  # indices into K10_CASES: the query shape and the pass-1 shape
+# K11 on integer-valued pools, rows bit for bit at alpha 1.0 and 1.2: (B, P,
+# R, metric, D); P = 1,500 and D = 1,536 read the rows from device memory
+K11_CASES = [
+    (1, 160, 64, "euclidean", 128), (7, 224, 64, "euclidean", 128), (512, 160, 64, "euclidean", 128),
+    (4096, 224, 64, "euclidean", 128), (7, 128, 32, "dot", 128), (7, 128, 64, "cosine", 128),
+    (7, 160, 32, "haversine", 2), (7, 1500, 64, "euclidean", 128), (7, 224, 64, "euclidean", 1536),
+]
+K11_REPEAT_CASE = 3
+
+
+def _k10_graph(vo, device, b, R, metric, kind, integer, seed):
+    dim = 2 if metric == "haversine" else 128
+    n = 1 if kind == "one" else (100_000 if b >= 512 else 5_000)
+    return vo.random_graph(n, dim, R, integer=integer, metric=metric, seed=seed, device=device,
+                           nil_rows=0.9 if kind == "nil" else 0.25)
+
+
+def _k10_equal(torch, got, want, what) -> None:
+    for name, g, w in zip(got._fields, got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"K10 {what}: {name} differs from the plain version at "
+                                 f"{(g != w).nonzero()[:3].tolist()}")
+
+
+def _k10_top(torch, out, k=10):
+    from semadb_tpu_torch.ops.topk import sort_by_distance
+
+    i = out.cand_ids
+    d = out.cand_dists.masked_fill(i == 1, float("inf"))
+    d, i = sort_by_distance(d, i.masked_fill(i == 1, -1))
+    return d[:, :k], i[:, :k]
+
+
+def _k10_real_check(torch, vectors, queries, got, want, metric, truth, what) -> float:
+    """Real-valued data: the top-10 of the kernel's walk against the plain
+    version's by the tie rule, distances within VAMANA_RTOL of the terms'
+    magnitude, and recall@10 against ``truth`` (ids [B, 10]) within
+    VAMANA_RECALL_GAP. Returns the largest |error| of the distances."""
+    from semadb_tpu_torch.ops.distance import gather_distance
+
+    gd, gi = _k10_top(torch, got)
+    wd, wi = _k10_top(torch, want)
+    mag = float(vectors.abs().max()) ** 2 * vectors.shape[1] * 4
+    cap = vectors.shape[0]
+
+    def dist_of(b, i):
+        ids = torch.tensor([[max(int(i), 0)]], device=vectors.device)
+        return float(gather_distance(vectors, ids.clamp(0, cap - 1), queries[b : b + 1], metric)[0, 0])
+
+    err = check_rows(torch, (wd, wi), (gd, gi), dist_of, VAMANA_RTOL * mag, what)
+    t = torch.as_tensor(np.asarray(truth), device=gi.device)
+
+    def recall(ids):
+        return float((ids[:, :, None] == t[:, None, :]).any(-1).float().mean())
+
+    rg, rw = recall(gi), recall(wi)
+    if abs(rg - rw) > VAMANA_RECALL_GAP:
+        raise AssertionError(f"K10 {what}: recall@10 {rg:.4f} against the plain version's {rw:.4f}")
+    return err
+
+
+def phase_vamana_kernels(torch, vamana_search, vamana_prune, device) -> dict:
+    """K10 and K11 against their plain versions on the card."""
+    from semadb_tpu_torch.ops.distance import pairwise_distance
+    from semadb_tpu_torch.tools import vamana_operands as vo
+
+    calls = 0
+    for c, (b, L, W, R, metric, seeded, track, kind) in enumerate(K10_CASES):
+        v, a = _k10_graph(vo, device, b, R, metric, kind, True, seed=c)
+        q = vo.random_queries(b, v.shape[1], integer=True, metric=metric, seed=100 + c, device=device)
+        seeds = vo.random_seeds(b, L, v.shape[0], seed=200 + c, device=device) if seeded else None
+        args = (v, a, q, L, W, 0, metric, seeds, track)
+        got = vamana_search.vamana_beam_search(*args)
+        torch.cuda.synchronize()
+        want = vamana_search.beam_search_plain(*args)
+        _k10_equal(torch, got, want, f"B={b} L={L} W={W} R={R} {metric} seeds={seeded} track={track} {kind}")
+        calls += 1
+        if c in K10_REPEAT_CASES:
+            for _ in range(VAMANA_REPEATS):
+                _k10_equal(torch, vamana_search.vamana_beam_search(*args), got, f"repeat at B={b} L={L} W={W}")
+            calls += VAMANA_REPEATS
+    real_err = 0.0
+    for metric in ("euclidean", "cosine"):
+        v, a = vo.random_graph(100_000, 128, 64, integer=False, metric=metric, seed=7, device=device)
+        q = vo.random_queries(2048, 128, integer=False, metric=metric, seed=8, device=device)
+        args = (v, a, q, 40, 2, 0, metric, None, False)
+        got = vamana_search.vamana_beam_search(*args)
+        want = vamana_search.beam_search_plain(*args)
+        d = pairwise_distance(q, v, metric)
+        d[:, :2] = float("inf")
+        truth = torch.topk(d, 10, dim=1, largest=False).indices.cpu().numpy()
+        real_err = max(real_err, _k10_real_check(torch, v, q, got, want, metric, truth, f"real {metric} B=2048"))
+    log(f"[vamana-kernels] K10 == plain bit for bit at {len(K10_CASES)} integer-valued cases (L 25-512, W 1-8, "
+        f"R 32/64, B 1-8192, seeds, rings, NIL rows, one node, 4 metrics) and {VAMANA_REPEATS} repeats at "
+        f"{len(K10_REPEAT_CASES)} shapes ({calls} calls); real-valued top-10 by the tie rule, max |err| "
+        f"{real_err:.3g}")
+    k11_calls = 0
+    k11_unequal = 0.0  # the largest share of rows unequal to the plain version's
+    for c, (b, p, R, metric, dim) in enumerate(K11_CASES):
+        v, _ = vo.random_graph(20_000, dim, 8, integer=True, metric=metric, seed=300 + c, device=device)
+        d, i, s = vo.prune_pools(v, b, p, metric, seed=400 + c)
+        for alpha in (1.0, 1.2):
+            args = (d, i, s, v, R, max(R, 8), alpha, metric)
+            got = vamana_prune.vamana_robust_prune(*args)
+            torch.cuda.synchronize()
+            want = vamana_prune.robust_prune_plain(*args)
+            k11_unequal = max(k11_unequal, float((got != want).any(1).float().mean()))
+            if not torch.equal(got, want):
+                bad = (got != want).any(1).nonzero()[:3, 0].tolist()
+                raise AssertionError(f"K11 B={b} P={p} R={R} {metric} D={dim} alpha={alpha}: rows {bad} differ")
+            k11_calls += 1
+            if c == K11_REPEAT_CASE and alpha == 1.2:
+                for _ in range(VAMANA_REPEATS):
+                    if not torch.equal(vamana_prune.vamana_robust_prune(*args), got):
+                        raise AssertionError(f"K11 repeat at B={b} P={p}: a row differs")
+                k11_calls += VAMANA_REPEATS
+    v, _ = vo.random_graph(20_000, 128, 8, integer=False, metric="euclidean", seed=9, device=device)
+    d, i, s = vo.prune_pools(v, 4096, 224, "euclidean", seed=10)
+    got = vamana_prune.vamana_robust_prune(d, i, s, v, 64, 64, 1.2, "euclidean")
+    want = vamana_prune.robust_prune_plain(d, i, s, v, 64, 64, 1.2, "euclidean")
+    same = float((got == want).all(1).float().mean())
+    k11_unequal = max(k11_unequal, 1.0 - same)
+    if same < 0.99:
+        raise AssertionError(f"K11 on real-valued pools: only {same:.4f} of the rows equal the plain version's")
+    log(f"[vamana-kernels] K11 == plain bit for bit at {len(K11_CASES)} integer-valued cases x alpha 1.0, 1.2 "
+        f"(B 1-4096, P 128-1500, R 32/64, 4 metrics, D 2-1536) and {VAMANA_REPEATS} repeats ({k11_calls} calls); "
+        f"real-valued pools at B=4096 P=224: {same:.4f} of the rows equal (a near-tie decision may part)")
+    return {"k10_err": real_err, "k10_calls": calls, "k11_calls": k11_calls, "k11_real_same": same,
+            "k11_unequal": k11_unequal}
+
+
+def phase_vamana_cell(torch, counted, vamana_search, vamana_prune) -> dict:
+    """The Vamana engine cell (bench.py's BENCH_MODE=plain) through
+    annbench.main, then K10 and K11 on the cell's own graph."""
+    from semadb_tpu_torch.index.vamana import build
+    from semadb_tpu_torch.tools import vamana_operands as vo
+
+    res, prof, launches, _, keep = _run_annbench(counted, ("--engine", "vamana"), "vamana-cell")
+    if res["recall@10"] < VAMANA_CELL_RECALL:
+        raise AssertionError(f"Vamana cell recall@10 {res['recall@10']} is below {VAMANA_CELL_RECALL}")
+    if launches["K10"] <= 0 or launches["K11"] <= 0:
+        raise AssertionError(f"the Vamana cell did not run K10 and K11: {launches}")
+    idx, queries, gt = keep["index"], keep["queries"], keep["ground_truth"]
+    st, cfg = idx.state, idx.config
+    dim, R = cfg.dim, cfg.degree_bound
+    out = {"res": res, "profile": prof, "launches": launches}
+    # K10 at the query shape: the cell's first batch, its seeds
+    b = res["batch"]
+    q = torch.from_numpy(np.ascontiguousarray(queries[:b], np.float32)).to(idx.device)
+    seeds = idx._seeds_for(q)
+    args = (st.vectors, st.adjacency, q, res["search_size"], 2, 0, cfg.metric, seeds, False)
+    got = vamana_search.vamana_beam_search(*args)
+    want = vamana_search.beam_search_plain(*args)
+    err = _k10_real_check(torch, st.vectors, q, got, want, cfg.metric, gt[:b] + 2, f"the cell's batch B={b}")
+    k10 = {"max_abs_err": err, **vo.k10_least_bytes(*args), "hops_per_query": float(got.hops.float().mean()),
+           "shape": f"the cell's query walk: B={b}, L={res['search_size']}, W=2, R={R}, D={dim}, "
+                    f"{seeds.shape[1]} entry seeds, no ring"}
+    k10["ms"] = _device_ms(torch, lambda: vamana_search.vamana_beam_search(*args), runs=VAMANA_TIMED_RUNS,
+                           kernel=vamana_search.KERNELS)
+    k10["plain_ms"] = _median_call_ms(torch, lambda: vamana_search.beam_search_plain(*args), runs=3)
+    k10["bound_ms"] = _bound_ms(k10["bytes"])
+    # K10 at pass 1's shape: 512 of the corpus's own points, L = 75, W = 8, the ring
+    ids = torch.arange(2, 514, device=idx.device)
+    vb = st.vectors[ids].contiguous()
+    bargs = (st.vectors, st.adjacency, vb, cfg.search_size, build.BUILD_W, 0, cfg.metric, None, True)
+    bout = vamana_search.vamana_beam_search(*bargs)
+    k10["build_shape"] = {
+        "shape": f"pass 1's walk: B=512, L={cfg.search_size}, W={build.BUILD_W}, ring, compacted",
+        "ms": _device_ms(torch, lambda: vamana_search.vamana_beam_search(*bargs), runs=VAMANA_TIMED_RUNS,
+                         kernel=vamana_search.KERNELS),
+        **vo.k10_least_bytes(*bargs)}
+    k10["build_shape"]["bound_ms"] = _bound_ms(k10["build_shape"]["bytes"])
+    # K11 at pass 2's shape: 4,096 of the corpus's points, their pools as
+    # the insert makes them (ring, in-batch peers, current out-edges)
+    pids = torch.arange(2, 4098, device=idx.device, dtype=torch.int32)
+    pv = st.vectors[pids.long()].contiguous()
+    pd, pi = build.candidate_pools(st, pids, pv, cfg, cfg.search_size, 8, own_edges=st.adjacency[pids.long()],
+                                   expand_width=build.BUILD_W)
+    pd, pi = pd.contiguous(), pi.to(torch.int32).contiguous()
+    kargs = (pd, pi, pids, st.vectors, R, build.r_stop(cfg), cfg.alpha, cfg.metric)
+    kgot = vamana_prune.vamana_robust_prune(*kargs)
+    kwant = vamana_prune.robust_prune_plain(*kargs)
+    same = float((kgot == kwant).all(1).float().mean())
+    if same < 0.99:
+        raise AssertionError(f"K11 on the cell's pass-2 pools: only {same:.4f} of the rows equal the plain version's")
+    k11 = {"rows_equal": same, **vo.k11_least_bytes(pd, pi, pids, dim, R),
+           "shape": f"pass 2's prune: B=4096, P={pi.shape[1]} (ring + 8 peers + {R} own edges), R={R}, "
+                    f"alpha {cfg.alpha}, the cell's own pools"}
+    k11["ms"] = _device_ms(torch, lambda: vamana_prune.vamana_robust_prune(*kargs), runs=VAMANA_TIMED_RUNS,
+                           kernel=vamana_prune.KERNELS)
+    k11["plain_ms"] = _median_call_ms(torch, lambda: vamana_prune.robust_prune_plain(*kargs), runs=3)
+    k11["bound_ms"] = _bound_ms(k11["bytes"])
+    # K11 at pass 1's shape: 512 pools of the ring and the peers, alpha 1.0
+    qd, qi = build.candidate_pools(st, pids[:512], pv[:512], cfg, cfg.search_size, 8, expand_width=build.BUILD_W)
+    qargs = (qd.contiguous(), qi.to(torch.int32).contiguous(), pids[:512], st.vectors, R, build.r_stop(cfg), 1.0,
+             cfg.metric)
+    k11["build_shape"] = {
+        "shape": f"pass 1's prune: B=512, P={qi.shape[1]}, alpha 1.0",
+        "ms": _device_ms(torch, lambda: vamana_prune.vamana_robust_prune(*qargs), runs=VAMANA_TIMED_RUNS,
+                         kernel=vamana_prune.KERNELS),
+        **vo.k11_least_bytes(*qargs[:3], dim, R)}
+    k11["build_shape"]["bound_ms"] = _bound_ms(k11["build_shape"]["bytes"])
+    out.update(k10=k10, k11=k11)
+    log(f"[vamana-cell] K10 at the cell's query walk {k10['ms']:.4f} ms (plain {k10['plain_ms']:.2f} ms, bound "
+        f"{k10['bound_ms']:.4f} ms for {k10['bytes'] / 1e9:.3f} GB: {k10['distinct_rows_scored']} distinct rows of "
+        f"{k10['rows_scored']} scored, {k10['distinct_nodes_expanded']} of {k10['nodes_expanded']} expanded; "
+        f"{k10['hops_per_query']:.2f} hops a query); "
+        f"at pass 1's walk {k10['build_shape']['ms']:.4f} ms (bound {k10['build_shape']['bound_ms']:.4f}); "
+        f"K11 at pass 2's prune {k11['ms']:.4f} ms (plain {k11['plain_ms']:.2f} ms, bound {k11['bound_ms']:.4f} ms "
+        f"for {k11['distinct_rows']} distinct rows of {k11['live_rows']} live, "
+        f"{same:.4f} of the rows equal), at pass 1's {k11['build_shape']['ms']:.4f} ms "
+        f"(bound {k11['build_shape']['bound_ms']:.4f}); cell launches {launches}")
+    del keep
+    return out
+
+
+def phase_vamana_http(torch, counted, device, seed: int, n_points: int = HTTP_VAMANA_POINTS) -> dict:
+    """A v1 collection and a v2 vectorVamana collection over the port's node
+    and HTTP server: searches against numpy, deletes and updates, then a
+    flush (the dirty-row snapshot), close and reopen."""
+    import uuid
+    from urllib.error import HTTPError
+
+    from semadb_tpu_torch.models import Point
+    from semadb_tpu_torch.tools import dbpedia_bq as bq
+    from semadb_tpu_torch.tools.datasets import embedding_like
+
+    dim = HTTP_IVF_DIM
+    ds = embedding_like(n_points + HTTP_VAMANA_WRITES, dim, 10, spread=0.5, seed=seed + 12)
+    data, queries = ds.train[:n_points].copy(), ds.test
+    moved_to = ds.train[n_points:]
+    rng = np.random.default_rng([seed, 12])
+    ids = [str(uuid.UUID(bytes=rng.bytes(16), version=4)) for _ in range(n_points)]
+    row_of = {pid: i for i, pid in enumerate(ids)}
+    tags = [f"t{i % 4}" for i in range(n_points)]
+    order = rng.permutation(n_points)
+    deleted = order[:HTTP_VAMANA_WRITES]
+    moved = order[HTTP_VAMANA_WRITES : 2 * HTTP_VAMANA_WRITES]
+    v2_schema = {"vec": {"type": "vectorVamana", "vectorVamana": {"vectorSize": dim, "distanceMetric": "euclidean"}},
+                 "tag": {"type": "string", "string": {"caseSensitive": True}}}
+    live = np.ones(n_points, bool)
+
+    def check(rows, what, flt=None) -> float:
+        hits = 0
+        for qv, row in zip(queries, rows):
+            d = ((data.astype(np.float64) - qv.astype(np.float64)) ** 2).sum(-1)
+            ok = live.copy() if flt is None else live & flt
+            d[~ok] = np.inf
+            truth = set(np.argsort(d, kind="stable")[:LIMIT].tolist())
+            got = [row_of[pid] for pid, _ in row]
+            if any(not ok[r] for r in got):
+                raise AssertionError(f"{what}: a deleted or filtered-out point came back")
+            hits += len(truth & set(got))
+            for (_, dist), r in zip(row, got):
+                if abs(dist - d[r]) > VAMANA_RTOL * max(1.0, d[r]):
+                    raise AssertionError(f"{what}: distance {dist} of a point at {d[r]}")
+        recall = hits / (LIMIT * len(rows))
+        if recall < HTTP_VAMANA_RECALL:
+            raise AssertionError(f"{what}: recall@10 {recall} is below {HTTP_VAMANA_RECALL}")
+        return recall
+
+    def v2_body(qv, flt=None):
+        body = {"query": {"property": "vec", "vectorVamana": {"vector": qv.tolist(), "operator": "near",
+                                                              "limit": LIMIT}}}
+        if flt is not None:
+            body["query"]["vectorVamana"]["filter"] = flt
+        return body
+
+    def searches(srv) -> dict:
+        v1 = srv.base.replace("/v2/collections", "/v1/collections")
+        out = {"v1": [[(p["id"], p["distance"]) for p in bq.http_json(v1, "POST", "/vone/points/search", {
+            "vector": qv.tolist(), "limit": LIMIT})["points"]] for qv in queries]}
+        out["v2"] = [[(p["_id"], p["_distance"]) for p in bq.http_json(
+            srv.base, "POST", "/vtwo/points/search", v2_body(qv))["points"]] for qv in queries]
+        rows = bq.http_json(srv.base, "POST", "/vtwo/points/search/batch",
+                            {"queries": [v2_body(qv) for qv in queries]})["results"]
+        out["v2_batch"] = [[(p["_id"], p["_distance"]) for p in row["points"]] for row in rows]
+        flt = {"property": "tag", "string": {"value": "t1", "operator": "equals"}}
+        out["v2_filtered"] = [[(p["_id"], p["_distance"]) for p in bq.http_json(
+            srv.base, "POST", "/vtwo/points/search", v2_body(qv, flt))["points"]] for qv in queries]
+        return out
+
+    def check_all(res, what) -> dict:
+        t1 = np.array([t == "t1" for t in tags])
+        return {key: check(res[key], f"{what} {key}", t1 if key == "v2_filtered" else None) for key in res}
+
+    with tempfile.TemporaryDirectory(prefix="semadb_smoke_vamana_") as root:
+        cfg = bq.slice_config(root)
+        _zero_counts(counted)
+        with bq.serving(cfg, device) as srv:
+            v1 = srv.base.replace("/v2/collections", "/v1/collections")
+            bq.http_json(v1, "POST", "", {"id": "vone", "vectorSize": dim, "distanceMetric": "euclidean"})
+            bq.http_json(srv.base, "POST", "", {"id": "vtwo", "indexSchema": v2_schema})
+            cols = {name: srv.node.get_collection(bq.USER["X-User-Id"], name) for name in ("vone", "vtwo")}
+            for col in cols.values():
+                col.user_plan = srv.plan
+            t0 = time.perf_counter()
+            bq.http_json(v1, "POST", "/vone/points", {"points": [
+                {"id": ids[i], "vector": data[i].tolist(), "metadata": {"n": int(i)}} for i in range(1000)]})
+            bq.http_json(srv.base, "POST", "/vtwo/points", {"points": [
+                {"_id": ids[i], "vec": data[i].tolist(), "tag": tags[i]} for i in range(1000)]})
+            for lo in range(1000, n_points, 5000):
+                rows = range(lo, min(lo + 5000, n_points))
+                for name, pts in (
+                    ("vone", [Point.from_map({"vector": data[i].tolist(), "metadata": {"n": int(i)}},
+                                             uuid.UUID(ids[i])) for i in rows]),
+                    ("vtwo", [Point.from_map({"vec": data[i].tolist(), "tag": tags[i]}, uuid.UUID(ids[i]))
+                              for i in rows]),
+                ):
+                    failed = srv.node.insert_points(cols[name], pts)
+                    assert failed == [], failed
+            ingest_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            before = searches(srv)
+            search_s = time.perf_counter() - t0
+            recall = check_all(before, "before the writes")
+            t0 = time.perf_counter()
+            for lo in range(0, len(deleted), 100):
+                chunk = [ids[i] for i in deleted[lo : lo + 100]]
+                bq.http_json(v1, "DELETE", "/vone/points", {"ids": chunk})
+                bq.http_json(srv.base, "DELETE", "/vtwo/points", {"ids": chunk})
+            live[deleted] = False
+            for lo in range(0, len(moved), 100):
+                rows = list(enumerate(moved[lo : lo + 100], start=lo))
+                bq.http_json(v1, "PUT", "/vone/points", {"points": [
+                    {"id": ids[i], "vector": moved_to[j].tolist(), "metadata": {"n": int(i)}} for j, i in rows]})
+                bq.http_json(srv.base, "PUT", "/vtwo/points", {"points": [
+                    {"_id": ids[i], "vec": moved_to[j].tolist()} for j, i in rows]})
+            data[moved] = moved_to
+            writes_s = time.perf_counter() - t0
+            after = searches(srv)
+            recall_after = check_all(after, "after the writes")
+            for j, i in enumerate(moved[:20]):
+                top = bq.http_json(v1, "POST", "/vone/points/search", {"vector": moved_to[j].tolist(), "limit": 1})
+                if top["points"][0]["id"] != ids[i]:
+                    raise AssertionError(f"an updated point does not find itself: {top['points'][0]}")
+            try:
+                bq.http_json(srv.base, "POST", "", {"id": "vbq", "indexSchema": {"v": {
+                    "type": "vectorVamana", "vectorVamana": {"vectorSize": dim, "distanceMetric": "euclidean",
+                                                             "quantizer": {"type": "binary",
+                                                                           "binary": {"threshold": 0.0}}}}}})
+            except HTTPError as e:
+                refused = e.code == 400 and "slice 13" in e.read().decode()
+            else:
+                refused = False
+            if not refused:
+                raise AssertionError("a quantized vectorVamana collection was not refused naming slice 13")
+            chunks = {}
+            for name in cols:
+                col = srv.node.get_collection(bq.USER["X-User-Id"], name)
+                col.user_plan = srv.plan
+                chunks[name] = sum(srv.node.shard_manager.do_with_shard(col, sid, lambda s: s.flush())
+                                   for sid in col.shard_ids)
+        launches = {nm: mod.LAUNCHES for nm, mod in counted}
+        with bq.serving(cfg, device) as srv:
+            reopened = searches(srv)
+        if reopened != after:
+            bad = [key for key in after if reopened[key] != after[key]]
+            raise AssertionError(f"after close and reopen the searches {bad} answer otherwise")
+    log(f"[vamana-http] {n_points} points of {dim}-d into a v1 and a v2 vectorVamana collection (1,000 each over "
+        f"HTTP) in {ingest_s:.2f} s; 10 single searches of each, a batch of 10 and 10 filtered (v2): recall@10 "
+        f"{recall} against numpy, every distance exact, in {search_s:.2f} s; {HTTP_VAMANA_WRITES} deletes and "
+        f"{HTTP_VAMANA_WRITES} updates a collection in {writes_s:.2f} s: recall@10 {recall_after}, no deleted id "
+        f"back, 20 updated points find themselves; a quantized vectorVamana refused naming slice 13; the flush "
+        f"after the writes wrote {chunks} chunks (dirty rows only); after close and reopen every search answers "
+        f"the same; launches {launches}")
+    if launches["K10"] <= 0 or launches["K11"] <= 0:
+        raise AssertionError(f"the HTTP Vamana phase did not run K10 and K11: {launches}")
+    return {"recall": recall, "recall_after": recall_after, "launches": launches, "chunks": chunks}
+
+
 def _phase(name: str, fn, *args, **kwargs):
     """Run one phase between a line that says it starts and one that says it
     passed, so that a failure can be placed."""
@@ -2237,8 +2683,9 @@ def main() -> int:
     device = torch.device("cuda")
     t_start = time.perf_counter()
     env = _phase("1 environment", phase_environment, torch)
-    hamming, gather, ivf_scan, ivf_rerank, ivf_pq_scan = _phase("1 build", phase_build)
-    counted = (("K1", hamming), ("K2", gather), ("K3", ivf_scan), ("K4", ivf_rerank), ("K9", ivf_pq_scan))
+    hamming, gather, ivf_scan, ivf_rerank, ivf_pq_scan, vamana_search, vamana_prune = _phase("1 build", phase_build)
+    counted = (("K1", hamming), ("K2", gather), ("K3", ivf_scan), ("K4", ivf_rerank), ("K9", ivf_pq_scan),
+               ("K10", vamana_search), ("K11", vamana_prune))
     worst = _phase("2 K1 against its plain version", phase_kernel, torch, hamming, device)
     sl = _phase("3 the BQ slice over HTTP", phase_slice, torch, hamming, gather, device, args.seed)
     timing = _phase("4 K1 timing", phase_timing, torch, hamming, sl["codes"], sl["qcodes"])
@@ -2261,6 +2708,10 @@ def main() -> int:
     pqcell = _phase("11 the IVF-PQ cell", phase_ivfpq_cell, torch, counted, ivf_pq_scan, ivf_rerank, k9_baseline)
     fcell = _phase("12 the fused cell", phase_fused_cell, torch, counted, ivf_scan, ivf_rerank)
     http = _phase("13 PQ and fused over HTTP", phase_pq_fused_http, torch, counted, device, args.seed)
+    vker = _phase("14 K10 and K11 against their plain versions", phase_vamana_kernels, torch, vamana_search,
+                  vamana_prune, device)
+    vcell = _phase("15 the Vamana cell", phase_vamana_cell, torch, counted, vamana_search, vamana_prune)
+    vhttp = _phase("16 v1 and v2 Vamana collections over HTTP", phase_vamana_http, torch, counted, device, args.seed)
     log(f"[profiler] times reported by CUDA events after every window lost its kernels (P2): "
         f"{len(EVENT_FALLBACKS)} {EVENT_FALLBACKS}")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
@@ -2375,6 +2826,45 @@ def main() -> int:
         "shape": ("the HTTP phase's flat PQ index, one query: " + json.dumps(http["dense"]["shape"])
                   + f"; device time per call, mean of {IVF_TIMED_RUNS}"),
         "ivfpq_batch": {key: v for key, v in pqcell["k9_dense"].items() if key != "max_abs_err"},
+    }, {
+        "name": "K10 vamana_beam_search (the whole beam-search walk, one block a query)",
+        "route": "cuda",
+        "source": "semadb_tpu_torch/csrc/vamana_search.cu",
+        "replaces": "semadb_tpu/index/vamana/search.py:123",
+        "launches": vcell["launches"]["K10"],
+        **{key: vcell["k10"][key] for key in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "bytes",
+        "max_abs_err": max(vker["k10_err"], vcell["k10"]["max_abs_err"]),
+        "library_ms": None,
+        "library": LIBRARY_NONE_K10,
+        "shape": vcell["k10"]["shape"] + f"; device time per call, mean of {VAMANA_TIMED_RUNS}",
+        "bound_bytes": vcell["k10"]["bytes"],
+        **{key: vcell["k10"][key] for key in ("distinct_rows_scored", "rows_scored", "distinct_nodes_expanded",
+                                              "nodes_expanded")},
+        "hops_per_query": vcell["k10"]["hops_per_query"],
+        "build_shape": vcell["k10"]["build_shape"],
+        "launches_http": vhttp["launches"]["K10"],
+        "checked_calls": vker["k10_calls"],
+    }, {
+        "name": "K11 vamana_robust_prune (the greedy alpha prune, one block a node)",
+        "route": "cuda",
+        "source": "semadb_tpu_torch/csrc/vamana_prune.cu",
+        "replaces": "semadb_tpu/index/vamana/build.py:97",
+        "launches": vcell["launches"]["K11"],
+        **{key: vcell["k11"][key] for key in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "bytes",
+        "max_abs_err": max(vker["k11_unequal"], 1.0 - vcell["k11"]["rows_equal"]),
+        "max_abs_err_is": "K11's outputs are ids: the largest share of adjacency rows unequal to the plain "
+                          "version's in any check of this run (integer pools must have none)",
+        "library_ms": None,
+        "library": LIBRARY_NONE_K11,
+        "shape": vcell["k11"]["shape"] + f"; device time per call, mean of {VAMANA_TIMED_RUNS}",
+        "bound_bytes": vcell["k11"]["bytes"],
+        **{key: vcell["k11"][key] for key in ("distinct_rows", "live_rows")},
+        "rows_equal_real": vcell["k11"]["rows_equal"],
+        "build_shape": vcell["k11"]["build_shape"],
+        "launches_http": vhttp["launches"]["K11"],
+        "checked_calls": vker["k11_calls"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

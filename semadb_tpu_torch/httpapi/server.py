@@ -1,7 +1,7 @@
 """HTTP server: router + middleware chain over the stdlib threading server.
 
-Port of ``semadb_tpu/httpapi/server.py`` serving the v2 API (v1 wraps a
-fixed Vamana schema and waits for the Vamana port).
+Port of ``semadb_tpu/httpapi/server.py`` serving the v1 API (a fixed
+Vamana schema, ``httpapi/v1.py``) and the v2 API.
 
 Parity reference: httpapi/httpapi.go RunHTTPServer — mux with middleware
 chain (Recover → metrics/logging → ProxySecret → WhiteListIP → AppHeader),
@@ -91,11 +91,12 @@ class Router:
 
 class HttpServer:
     def __init__(self, node: ClusterNode, cfg: HttpApiConfig):
-        from semadb_tpu_torch.httpapi import v2
+        from semadb_tpu_torch.httpapi import v1, v2
 
         self.node = node
         self.cfg = cfg
         self.router = Router()
+        v1.register_routes(self.router, node)
         v2.register_routes(self.router, node)
 
         server = self

@@ -2,12 +2,13 @@
 
 Port of ``semadb_tpu/index/manager.py`` for the index types the port has:
 the vector engines ``vectorFlat`` and ``vectorIVF`` (each with or without a
-product quantizer) and ``vectorFused`` on the device, and the host indices
-``text``, ``string``, ``integer``, ``float`` and ``stringArray`` (inverted
-postings and TF-IDF text over the store). A schema naming ``vectorVamana``,
-which is not ported yet, is refused with a ``ValidationError`` that names it
-(:func:`check_supported`, called where a collection is created and where a
-shard is opened).
+product quantizer), ``vectorFused`` and ``vectorVamana`` (plain vectors) on
+the device, and the host indices ``text``, ``string``, ``integer``, ``float``
+and ``stringArray`` (inverted postings and TF-IDF text over the store). A
+``vectorVamana`` with a quantizer, or with the hamming or jaccard metric
+(which force the binary store), is refused with a ``ValidationError`` that
+says it comes in slice 13 (:func:`check_supported`, called where a collection
+is created and where a shard is opened).
 
 Dispatch: for every schema property, diff the old/new msgpack documents to
 classify insert/update/delete/skip, then route the change batch to that
@@ -35,6 +36,7 @@ from semadb_tpu_torch.index.fused import FusedHybridIVF
 from semadb_tpu_torch.index.inverted import IndexInverted, IndexInvertedArray, PostingsCache
 from semadb_tpu_torch.index.ivf import IndexIVF
 from semadb_tpu_torch.index.text import IndexText, TextCaches, _doc_codec, _postings_codec
+from semadb_tpu_torch.index.vamana import IndexVamana
 from semadb_tpu_torch.models import constants as C
 from semadb_tpu_torch.models.errors import NotFoundError, ValidationError
 from semadb_tpu_torch.models.point import SearchResult, access_nested, decode_point_data
@@ -56,6 +58,7 @@ _ENGINES = {
     C.INDEX_TYPE_VECTOR_FLAT: ("vector_flat", IndexFlat),
     C.INDEX_TYPE_VECTOR_IVF: ("vector_ivf", IndexIVF),
     C.INDEX_TYPE_VECTOR_FUSED: ("vector_fused", FusedHybridIVF.from_params),
+    C.INDEX_TYPE_VECTOR_VAMANA: ("vector_vamana", IndexVamana),
 }
 VECTOR_INDEX_TYPES = tuple(_ENGINES)
 # The host index types (no device state): the attribute of a query that
@@ -81,6 +84,13 @@ def check_supported(schema: IndexSchema) -> None:
                 f"index type {params.type} (property {prop}) is not supported by "
                 f"semadb_tpu_torch yet; supported: {', '.join(SUPPORTED_INDEX_TYPES)}"
             )
+        if params.type == C.INDEX_TYPE_VECTOR_VAMANA:
+            vp = params.vector_vamana
+            if vp.quantizer is not None or vp.distance_metric in (C.DISTANCE_HAMMING, C.DISTANCE_JACCARD):
+                raise ValidationError(
+                    f"a quantized vectorVamana index (property {prop}: a quantizer, or the hamming or "
+                    f"jaccard metric) is not supported by semadb_tpu_torch yet; it comes in slice 13"
+                )
 
 
 def _vector_params(params):
@@ -139,7 +149,7 @@ class IndexManager:
     ):
         self.bm = bm
         self.schema = schema
-        self.devices = device_registry  # bucket_name → IndexFlat | IndexIVF | FusedHybridIVF
+        self.devices = device_registry  # bucket_name → IndexFlat | IndexIVF | FusedHybridIVF | IndexVamana
         self.device = torch.device(device)
         # bucket_name → PostingsCache | TextCaches: decoded postings owned by
         # the Shard, which outlive this per-transaction manager
@@ -306,6 +316,8 @@ class IndexManager:
             ]
             return idx.search_batch(qviews, opts.limit, weights=opts.weights, num_probes=probes, filter_mask=fm)
         vecs = np.stack([np.asarray(o.vector, np.float32) for o in opts_list])
+        if isinstance(idx, IndexVamana):
+            return idx.search_batch(vecs, k=opts.limit, search_size=opts.search_size, filter_mask=fm)
         return idx.search_batch(vecs, k=opts.limit, num_probes=probes, filter_mask=fm)
 
     @staticmethod
@@ -375,6 +387,7 @@ class IndexManager:
                 and o.weight == o0.weight
                 and _filters_equal(o.filter, o0.filter)
                 and getattr(o, "num_probes", 0) == getattr(o0, "num_probes", 0)
+                and getattr(o, "search_size", 0) == getattr(o0, "search_size", 0)
                 and getattr(o, "weights", None) == getattr(o0, "weights", None)
             ):
                 return None

@@ -33,7 +33,7 @@ FLOAT_METRICS = (C.DISTANCE_EUCLIDEAN, C.DISTANCE_DOT, C.DISTANCE_COSINE, C.DIST
 BIT_METRICS = (C.DISTANCE_HAMMING, C.DISTANCE_JACCARD)
 
 __all__ = [
-    "pairwise_distance", "pairwise_bit_distance", "is_bit_metric", "validate_metric",
+    "pairwise_distance", "gather_distance", "pairwise_bit_distance", "is_bit_metric", "validate_metric",
 ]
 
 
@@ -67,6 +67,25 @@ def pairwise_distance(queries: torch.Tensor, corpus: torch.Tensor, metric: str) 
         return (1.0 - cross) if metric == C.DISTANCE_COSINE else -cross
     if metric == C.DISTANCE_HAVERSINE:
         return _haversine_pair(queries[:, None, :], corpus[None, :, :])
+    raise ValueError(f"unknown float32 distance function: {metric}")
+
+
+def gather_distance(
+    vectors: torch.Tensor, ids: torch.Tensor, queries: torch.Tensor, metric: str
+) -> torch.Tensor:
+    """Per-query distances to gathered candidate rows: ``vectors`` f32[cap, D],
+    ``ids`` [B, K] (in range; the caller clips), ``queries`` f32[B, D] →
+    f32[B, K]. Euclidean is taken directly, ``sum (c - q)^2``, not by the
+    norm expansion (the JAX package's ``gather_distance``)."""
+    cand = vectors[ids.long()]  # [B, K, D]
+    if metric == C.DISTANCE_EUCLIDEAN:
+        diff = cand - queries[:, None, :]
+        return (diff * diff).sum(-1)
+    if metric in (C.DISTANCE_DOT, C.DISTANCE_COSINE):
+        cross = (cand * queries[:, None, :]).sum(-1)
+        return (1.0 - cross) if metric == C.DISTANCE_COSINE else -cross
+    if metric == C.DISTANCE_HAVERSINE:
+        return _haversine_pair(queries[:, None, :], cand)
     raise ValueError(f"unknown float32 distance function: {metric}")
 
 

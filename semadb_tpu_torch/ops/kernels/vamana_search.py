@@ -1,0 +1,292 @@
+"""Hand-written CUDA kernel K10: the Vamana beam search, one launch a batch.
+
+Replaces the XLA program of ``semadb_tpu/index/vamana/search.py`` ·
+``beam_search`` (``:123-246``): a ``lax.while_loop`` of hops, each taking the
+W earliest unexpanded entries of every query's sorted candidate list, scoring
+their neighbours (``ops/distance.py:96-123`` ``gather_distance``) and merging
+them in (``_merge_sorted``, ``:76-113``). The kernel source is
+``semadb_tpu_torch/csrc/vamana_search.cu``; one block a query runs the whole
+walk with its list, its visited ring and its merge buffer in shared memory.
+It is bound by bytes, and its header says what the design does about that.
+Built like K3, K4 and K9: ``nvcc`` for ``sm_90a`` into
+``semadb_tpu_torch/_build/`` at first use, loaded with ``ctypes``.
+
+:func:`vamana_beam_search` returns :class:`BeamOut`: the candidate list
+(f32, i32)[B, L], the visited ring (f32, i32)[B, V] sorted by (distance,
+id), V = ⌈2L/W⌉·W, the hops each query took i32[B] and its counts i32[B, 2]
+(nodes expanded, neighbour and seed rows scored). For CPU tensors it runs
+:func:`beam_search_plain`; for CUDA tensors it launches the kernel or raises,
+it never falls back. ``LAUNCHES`` counts launches.
+
+The walk is the JAX program's, with one difference that changes no result a
+caller reads: the JAX loop runs while any query of the batch has a pending
+entry, where here each query stops when it has none. A query with nothing
+pending is left as it was by a JAX step, except that an uncompacted list
+(a walk without the ring, the plain query walk) has its holes moved to the tail;
+``search`` drops the holes, so its results are the same. Ties: the merge
+sorts by (distance, id) with the list's incumbent entry first, as the stable
+``jax.lax.sort`` does; -0.0 and 0.0 are equal there, as in ``lax.sort``.
+
+Tolerance: on integer-valued vectors (|x| ≤ 8, D ≤ 128) every distance is
+exact in f32 and the kernel's outputs equal the plain version's bit for bit;
+on real-valued data the sums run in another order, so distances agree to
+about 1e-6 of the summed terms' magnitude, and walks may part at a near-tie.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+from typing import NamedTuple, Optional
+
+import torch
+
+from semadb_tpu_torch.models import constants as C
+from semadb_tpu_torch.ops.distance import gather_distance
+from semadb_tpu_torch.ops.topk import sort_by_distance
+from semadb_tpu_torch.utils.build import CSRC_DIR, NVCC_FLAGS, build_library, nvcc
+
+SOURCE = os.path.join(CSRC_DIR, "vamana_search.cu")
+HEADERS = (os.path.join(CSRC_DIR, "vamana_common.cuh"),)
+METRIC_FLAGS = {C.DISTANCE_EUCLIDEAN: 0, C.DISTANCE_DOT: 1, C.DISTANCE_COSINE: 2, C.DISTANCE_HAVERSINE: 3}
+MAX_L = 512
+MAX_WR = 512
+MAX_M = 2048  # the merge buffer's longest padded length
+MAX_D = 4096
+NIL = -1
+START_ID = C.START_NODE_ID
+KERNELS = ("vamana_beam_search_kernel",)
+
+LAUNCHES = 0
+BUILD_LOG = ""
+
+_LIB = None
+_LOCK = threading.Lock()
+
+
+class BeamOut(NamedTuple):
+    cand_dists: torch.Tensor  # f32[B, L]
+    cand_ids: torch.Tensor  # i32[B, L]
+    visited_dists: torch.Tensor  # f32[B, V], sorted by (d, id)
+    visited_ids: torch.Tensor  # i32[B, V]
+    hops: torch.Tensor  # i32[B]: hops each query took
+    counts: torch.Tensor  # i32[B, 2]: nodes expanded, rows scored
+
+
+def ring_size(search_size: int, expand_width: int) -> int:
+    """V: about 2L visited slots, a multiple of W (search.py:170-173)."""
+    return ((2 * search_size + expand_width - 1) // expand_width) * expand_width
+
+
+def default_max_hops(search_size: int, expand_width: int) -> int:
+    return (3 * search_size + expand_width - 1) // expand_width
+
+
+def merge_sorted(dists, ids, exp, new_d, new_i, L: int, compact: bool = True):
+    """``_merge_sorted``: the list and the new entries sorted by (d, id), the
+    list's entry first among equal keys; an id equal to its predecessor's
+    becomes (inf, -1); with ``compact`` sorted again; the first L."""
+    md = torch.cat([dists, new_d], dim=-1)
+    mi = torch.cat([ids, new_i], dim=-1)
+    me = torch.cat([exp, torch.zeros_like(new_i, dtype=torch.bool)], dim=-1)
+    md, mi, me = sort_by_distance(md, mi, me)
+    dup = torch.zeros_like(me)
+    dup[..., 1:] = mi[..., 1:] == mi[..., :-1]
+    dup &= mi != NIL
+    md = md.masked_fill(dup, float("inf"))
+    mi = mi.masked_fill(dup, NIL)
+    me = me & ~dup
+    if compact:
+        md, mi, me = sort_by_distance(md, mi, me)
+    return md[..., :L], mi[..., :L], me[..., :L]
+
+
+def beam_search_plain(
+    vectors: torch.Tensor, adjacency: torch.Tensor, queries: torch.Tensor, search_size: int,
+    expand_width: int, max_hops: int, metric: str, seeds: Optional[torch.Tensor] = None,
+    track_visited: bool = True,
+) -> BeamOut:
+    """Plain PyTorch version: the JAX loop hop by hop, a query updated only
+    while it has a pending entry. With ``track_visited`` the hops' merges
+    compact (``compact_merge``'s JAX default)."""
+    _check(vectors, adjacency, queries, search_size, expand_width, metric, seeds)
+    B = queries.shape[0]
+    cap, R = adjacency.shape
+    L, W = search_size, expand_width
+    V = ring_size(L, W)
+    max_hops = max_hops if max_hops > 0 else default_max_hops(L, W)
+    dev = queries.device
+    inf = float("inf")
+
+    def gd(ids):
+        return gather_distance(vectors, ids.clamp(0, cap - 1), queries, metric)
+
+    cand_d = torch.full((B, L), inf, dtype=torch.float32, device=dev)
+    cand_i = torch.full((B, L), NIL, dtype=torch.int32, device=dev)
+    cand_d[:, 0] = gd(torch.full((B, 1), START_ID, dtype=torch.int32, device=dev))[:, 0]
+    cand_i[:, 0] = START_ID
+    cand_e = torch.zeros((B, L), dtype=torch.bool, device=dev)
+    counts = torch.zeros((B, 2), dtype=torch.int32, device=dev)
+    if seeds is not None and seeds.shape[1] > 0:
+        ok = (seeds != NIL) & (seeds != START_ID)
+        sd = gd(seeds).masked_fill(~ok, inf)
+        si = seeds.masked_fill(~ok, NIL)
+        cand_d, cand_i, cand_e = merge_sorted(cand_d, cand_i, cand_e, sd, si, L, compact=True)
+        counts[:, 1] += ok.sum(-1, dtype=torch.int32)
+    vis_d = torch.full((B, V), inf, dtype=torch.float32, device=dev)
+    vis_i = torch.full((B, V), NIL, dtype=torch.int32, device=dev)
+    hops = torch.zeros(B, dtype=torch.int32, device=dev)
+    pos_l = torch.arange(L, device=dev)
+    for hop in range(max_hops):
+        unexp = (cand_i != NIL) & ~cand_e & torch.isfinite(cand_d)
+        active = unexp.any(-1)
+        if not bool(active.any()):
+            break
+        # The W earliest unexpanded positions (then, past those, the earliest
+        # others, which are not selected)
+        pos = torch.sort(torch.where(unexp, pos_l, pos_l + L), dim=-1).values[:, :W] % L
+        sel_ok = torch.gather(unexp, 1, pos)
+        cur = torch.gather(cand_i, 1, pos)
+        cur_d = torch.gather(cand_d, 1, pos)
+        cand_e = cand_e.clone()
+        cand_e.scatter_(1, pos, torch.gather(cand_e, 1, pos) | sel_ok)
+        if track_visited:
+            slot = (hop % (V // W)) * W
+            vis_i[:, slot : slot + W] = torch.where(sel_ok, cur, vis_i[:, slot : slot + W])
+            vis_d[:, slot : slot + W] = torch.where(sel_ok, cur_d, vis_d[:, slot : slot + W])
+        nbr = adjacency[cur.clamp(0, cap - 1).long()].reshape(B, W * R)
+        nbr_ok = (nbr != NIL) & sel_ok.repeat_interleave(R, dim=-1)
+        nd = gd(nbr).masked_fill(~nbr_ok, inf)
+        ni = nbr.masked_fill(~nbr_ok, NIL)
+        md, mi, me = merge_sorted(cand_d, cand_i, cand_e, nd, ni, L, compact=track_visited)
+        a = active[:, None]
+        cand_d = torch.where(a, md, cand_d)
+        cand_i = torch.where(a, mi, cand_i)
+        cand_e = torch.where(a, me, cand_e)
+        hops += active.to(torch.int32)
+        counts[:, 0] += sel_ok.sum(-1, dtype=torch.int32)
+        counts[:, 1] += nbr_ok.sum(-1, dtype=torch.int32)
+    vis_d, vis_i = sort_by_distance(vis_d, vis_i)
+    return BeamOut(cand_d, cand_i, vis_d, vis_i, hops, counts)
+
+
+def vamana_beam_search(
+    vectors: torch.Tensor, adjacency: torch.Tensor, queries: torch.Tensor, search_size: int,
+    expand_width: int, max_hops: int, metric: str, seeds: Optional[torch.Tensor] = None,
+    track_visited: bool = True,
+) -> BeamOut:
+    """``vectors`` f32[cap, D], ``adjacency`` i32[cap, R], ``queries`` f32[B, D],
+    ``seeds`` i32[B, S] or None → :class:`BeamOut`: the kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    tensors = [vectors, adjacency, queries] + ([seeds] if seeds is not None else [])
+    if all(t.device.type == "cpu" for t in tensors):
+        return beam_search_plain(vectors, adjacency, queries, search_size, expand_width, max_hops, metric,
+                                 seeds, track_visited)
+    _check(vectors, adjacency, queries, search_size, expand_width, metric, seeds)
+    dev = queries.device
+    if any(t.device != dev for t in tensors) or dev.type != "cuda":
+        raise ValueError(f"K10 operands must all lie on one CUDA device; got {[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("K10 operands must be contiguous")
+    lib = _library() if queries.shape[0] else None
+    out = launch(lib, vectors, adjacency, queries, search_size, expand_width, max_hops, metric, seeds,
+                 track_visited)
+    if queries.shape[0]:
+        global LAUNCHES
+        with _LOCK:
+            LAUNCHES += 1
+    return out
+
+
+def buffer_size(search_size: int, expand_width: int, degree: int, n_seeds: int) -> int:
+    """M: the merge buffer's length, the power of two at or above the
+    longest of L + W·R, L + S and V."""
+    need = max(search_size + expand_width * degree, search_size + n_seeds, ring_size(search_size, expand_width))
+    m = 1
+    while m < need:
+        m <<= 1
+    return m
+
+
+def launch(lib, vectors, adjacency, queries, search_size: int, expand_width: int, max_hops: int, metric: str,
+           seeds, track_visited: bool) -> BeamOut:
+    """One launch of a K10 library (:func:`bind`) on checked, contiguous
+    operands on one CUDA device (none for an empty batch); counts nothing.
+    Raises if it is refused."""
+    cap, D = vectors.shape
+    R = adjacency.shape[1]
+    B = queries.shape[0]
+    L, W = search_size, expand_width
+    V = ring_size(L, W)
+    S = 0 if seeds is None else seeds.shape[1]
+    dev = queries.device
+    out = BeamOut(
+        torch.empty((B, L), dtype=torch.float32, device=dev), torch.empty((B, L), dtype=torch.int32, device=dev),
+        torch.empty((B, V), dtype=torch.float32, device=dev), torch.empty((B, V), dtype=torch.int32, device=dev),
+        torch.empty((B,), dtype=torch.int32, device=dev), torch.empty((B, 2), dtype=torch.int32, device=dev),
+    )
+    if B == 0:
+        return out
+    hops = max_hops if max_hops > 0 else default_max_hops(L, W)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.semadb_vamana_beam_search(
+            vectors.data_ptr(), cap, D, adjacency.data_ptr(), R, queries.data_ptr(), B,
+            seeds.data_ptr() if S else None, S, L, W, buffer_size(L, W, R, S), hops, METRIC_FLAGS[metric],
+            int(track_visited), *(t.data_ptr() for t in out), stream,
+        )
+    if rc != 0:
+        msg = lib.semadb_vamana_search_error_string(rc).decode()
+        raise RuntimeError(f"K10 launch failed ({rc}: {msg}) at cap={cap} D={D} R={R} B={B} L={L} W={W} S={S}")
+    return out
+
+
+def _check(vectors, adjacency, queries, L, W, metric, seeds) -> None:
+    if metric not in METRIC_FLAGS:
+        raise ValueError(f"K10 takes the metrics {sorted(METRIC_FLAGS)}, got {metric}")
+    if vectors.dtype != torch.float32 or queries.dtype != torch.float32:
+        raise TypeError("vectors and queries must be float32")
+    if adjacency.dtype != torch.int32 or (seeds is not None and seeds.dtype != torch.int32):
+        raise TypeError("adjacency and seeds must be int32")
+    if vectors.dim() != 2 or adjacency.dim() != 2 or queries.dim() != 2:
+        raise ValueError("vectors, adjacency and queries must be matrices")
+    cap, D = vectors.shape
+    R = adjacency.shape[1]
+    if adjacency.shape[0] != cap or queries.shape[1] != D or cap < 2:
+        raise ValueError(f"shapes do not fit: vectors {tuple(vectors.shape)} adjacency {tuple(adjacency.shape)} "
+                         f"queries {tuple(queries.shape)}")
+    if seeds is not None and (seeds.dim() != 2 or seeds.shape[0] != queries.shape[0]):
+        raise ValueError(f"seeds {tuple(seeds.shape)} do not fit queries {tuple(queries.shape)}")
+    S = 0 if seeds is None else seeds.shape[1]
+    if not (1 <= L <= MAX_L and 1 <= W <= L and W * R <= MAX_WR and L + S <= MAX_M and D <= MAX_D):
+        raise ValueError(f"K10 needs L <= {MAX_L}, 1 <= W <= L, W*R <= {MAX_WR}, L + S <= {MAX_M} and "
+                         f"D <= {MAX_D}; got L={L} W={W} R={R} S={S} D={D}")
+    if metric == C.DISTANCE_HAVERSINE and D != 2:
+        raise ValueError(f"haversine takes 2-d points, got D={D}")
+
+
+def bind(path: str):
+    """Load a library built from a K10 source with this C interface."""
+    lib = ctypes.CDLL(path)
+    lib.semadb_vamana_beam_search.restype = ctypes.c_int
+    lib.semadb_vamana_beam_search.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
+    ]
+    lib.semadb_vamana_search_error_string.restype = ctypes.c_char_p
+    lib.semadb_vamana_search_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _library():
+    """Build (once per source hash) and load the kernel library."""
+    global _LIB, BUILD_LOG
+    with _LOCK:
+        if _LIB is None:
+            path, BUILD_LOG = build_library("vamana_search", SOURCE, nvcc(), NVCC_FLAGS, HEADERS)
+            _LIB = bind(path)
+        return _LIB

@@ -25,14 +25,26 @@ def top_k_smallest(dists: torch.Tensor, k: int):
     return torch.topk(dists, k, dim=-1, largest=False, sorted=True)
 
 
-def sort_by_distance(dists: torch.Tensor, ids: torch.Tensor):
+def sort_by_distance(dists: torch.Tensor, ids: torch.Tensor, *rest: torch.Tensor):
     """Sort (dist, id) pairs ascending by distance along the last axis,
-    ties broken by id (two stable sorts: by id, then by distance)."""
-    order = torch.argsort(ids, dim=-1, stable=True)
-    d = torch.gather(dists, -1, order)
-    i = torch.gather(ids, -1, order)
-    order = torch.argsort(d, dim=-1, stable=True)
-    return torch.gather(d, -1, order), torch.gather(i, -1, order)
+    ties broken by id (two stable sorts: by id, then by distance), so equal
+    pairs keep their order, as ``jnp.lexsort`` and the stable
+    ``lax.sort`` keep it; ``rest`` (tensors of the same shape) ride along."""
+    out = (dists, ids, *rest)
+    for key in (1, 0):
+        order = torch.argsort(out[key], dim=-1, stable=True)
+        out = tuple(torch.gather(t, -1, order) for t in out)
+    return out
+
+
+def smallest_k_stable(d: torch.Tensor, k: int):
+    """The k smallest along the last axis, ascending, equal values in index
+    order and -0.0 below 0.0: ``lax.top_k(-d, k)``'s order, from a stable
+    sort of the floats' total-order integer keys."""
+    bits = d.contiguous().view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    idx = torch.argsort(key, dim=-1, stable=True)[..., :k]
+    return torch.gather(d, -1, idx), idx
 
 
 def dedup_by_id(dists: torch.Tensor, ids: torch.Tensor):

@@ -16,14 +16,14 @@ import torch
 
 
 _ARRAYS = (
-    "vectors", "exists", "centroids", "slabs", "slab_sq", "slab_ids", "ovf_vecs", "ovf_ids",
+    "vectors", "adjacency", "exists", "centroids", "slabs", "slab_sq", "slab_ids", "ovf_vecs", "ovf_ids",
     "slab_codes", "ovf_codes",
 )
 
 
 def index_nbytes(idx) -> int:
     """Device bytes held by an index: a flat index's vectors, live mask and
-    vector store, an IVF index's vectors, centroids, slabs (or PQ codes) and
+    vector store, a Vamana index's vectors, adjacency and live mask, an IVF index's vectors, centroids, slabs (or PQ codes) and
     overflow, a fused index's inner IVF index (``Tensor.nbytes``, no
     transfers)."""
     inner = getattr(idx, "index", None)

@@ -1,8 +1,8 @@
 """Shard: the per-shard storage + index engine.
 
 Port of ``semadb_tpu/shard/shard.py`` over the port's engines
-(``vectorFlat``, ``vectorIVF`` and ``vectorFused`` on an explicit torch
-device, and the text and inverted indices on the host); the journal and
+(``vectorFlat``, ``vectorIVF``, ``vectorFused`` and ``vectorVamana`` on an
+explicit torch device, and the text and inverted indices on the host); the journal and
 snapshot formats are the JAX package's, so its shard files open here.
 
 Parity reference: shard/shard.go — CRUD over points inside one store
@@ -35,6 +35,7 @@ import torch
 from semadb_tpu_torch.index.flat import IndexFlat
 from semadb_tpu_torch.index.fused import FusedHybridIVF
 from semadb_tpu_torch.index.ivf import IndexIVF
+from semadb_tpu_torch.index.vamana import IndexVamana
 from semadb_tpu_torch.index.manager import (
     VECTOR_INDEX_TYPES,
     IndexManager,
@@ -143,6 +144,11 @@ class Shard:
                 FusedHybridIVF.from_params(params.vector_fused, self.device) if arrays is None
                 else FusedHybridIVF.from_arrays(arrays, params.vector_fused, self.device)
             )
+        elif params.type == C.INDEX_TYPE_VECTOR_VAMANA:
+            idx = (
+                IndexVamana(params.vector_vamana, self.device) if arrays is None
+                else IndexVamana.from_arrays(params.vector_vamana, arrays, self.device)
+            )
         elif arrays is None:
             idx = IndexFlat(params.vector_flat, self.device)
         else:
@@ -250,7 +256,17 @@ class Shard:
                     bucket.delete(k)
                 bucket.delete(DELTA_SEQ_KEY)
 
-        self.db.write(writer)
+        try:
+            self.db.write(writer)
+        except BaseException:
+            # The overlay rollback discarded our puts but write_snapshot
+            # already drained the dirty trackers: re-mark so the next flush
+            # rewrites everything rather than losing the drained rows.
+            for idx in self.device_indices.values():
+                tracker = getattr(idx, "dirty", None)
+                if tracker is not None:
+                    tracker.everything()
+            raise
         self._delta_txns = 0
         self._journal_bytes = 0
         LOG.debug("flush", chunks=chunks_written[0])

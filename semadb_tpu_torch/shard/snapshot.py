@@ -10,9 +10,11 @@ bucket:
   ``_dsChunk/<path>/<8B BE idx>``  raw bytes of rows [idx*chunk, ...)
 
 Arrays are flattened to "/"-joined paths (the nested ``store`` dict becomes
-``store/codes`` etc.) and chunked along axis 0 into ~4 MiB pieces. The
-port's flat index keeps no dirty-row tracker (the JAX package's flat index
-has none either), so a flush rewrites every chunk of the used rows; rows
+``store/codes`` etc.) and chunked along axis 0 into ~4 MiB pieces. An engine
+with a dirty-row tracker (``utils/dirty.DirtyTracker``: the Vamana index)
+has only its dirty chunks read back and rewritten, as the JAX package's
+writer does; an engine without one (the flat, IVF and fused indices), or
+whose tracker says "everything", gets every chunk of its used rows. Rows
 past the engine's ``snapshot_row_bounds`` are never copied off the device.
 The engine hands over tensors (``device_arrays``, read under its
 ``_write_lock`` when it has one); their dtype names in the meta are numpy's,
@@ -25,8 +27,8 @@ f32 placeholders), as the JAX package's does.
 Invariants:
   - the store write txn is atomic (overlay rollback), so a crashed flush
     leaves the PREVIOUS meta + chunks + journal intact;
-  - chunk keys past the new grid, and those of arrays that vanished, are
-    deleted.
+  - shape, dtype and chunk changes rewrite that array in full; chunk keys
+    past the new grid, and those of arrays that vanished, are deleted.
 """
 
 from __future__ import annotations
@@ -38,6 +40,9 @@ import msgpack
 import numpy as np
 import torch
 
+from semadb_tpu_torch.utils.dirty import ALL
+
+_CLEAN = object()  # sentinel: an array with no marks at all
 DS_META_KEY = b"_dsMeta"
 DS_CHUNK_PREFIX = b"_dsChunk/"
 LEGACY_STATE_KEY = b"_deviceState"
@@ -144,16 +149,49 @@ def _read_rows(arr, n_rows: int) -> np.ndarray:
     return host
 
 
+def _fetch_chunks(arr, chunks: np.ndarray, chunk: int, n_rows: int) -> list:
+    """Host copies of the given chunk indices of ``arr`` (tensor or numpy):
+    past half the grid one blocked readback of the used rows, else one
+    gather of the chunks' rows (in ≤256 MiB batches)."""
+    if len(chunks) == 0:
+        return []
+    if isinstance(arr, np.ndarray) or len(chunks) * 2 >= _n_chunks(n_rows, chunk):
+        host = _read_rows(arr, n_rows)
+        return [host[c * chunk : min((c + 1) * chunk, n_rows)] for c in chunks]
+    rows = np.concatenate([np.arange(c * chunk, min((c + 1) * chunk, n_rows)) for c in chunks])
+    row_bytes = int(_np_dtype(arr).itemsize) * int(np.prod(arr.shape[1:], dtype=np.int64))
+    batch_rows = max(1, (1 << 28) // max(row_bytes, 1))
+    parts = [
+        _to_host(arr[torch.as_tensor(rows[lo : lo + batch_rows], device=arr.device)])
+        for lo in range(0, len(rows), batch_rows)
+    ]
+    gathered = parts[0] if len(parts) == 1 else np.concatenate(parts)
+    out, off = [], 0
+    for c in chunks:
+        ln = min((c + 1) * chunk, n_rows) - c * chunk
+        out.append(gathered[off : off + ln])
+        off += ln
+    return out
+
+
 def write_snapshot(bucket, idx) -> int:
     """Persist ``idx``'s device state into ``bucket``. Must run inside a
-    store write txn. Returns the number of chunk records written."""
+    store write txn. Returns the number of chunk records written. Drains the
+    engine's dirty tracker; the caller re-marks ``everything()`` if the
+    surrounding txn later fails (the rollback discards these puts)."""
     # Writers are excluded while the arrays are read, so the cut is
     # consistent (IndexIVF also materialises deferred-fit placeholders here)
     with getattr(idx, "_write_lock", None) or contextlib.nullcontext():
-        return _write_arrays(bucket, _flatten(idx.device_arrays()), idx)
+        tracker = getattr(idx, "dirty", None)
+        if tracker is not None:
+            everything, marks = tracker.collect()
+            tracker.clear()
+        else:
+            everything, marks = True, {}
+        return _write_arrays(bucket, _flatten(idx.device_arrays()), idx, everything, marks)
 
 
-def _write_arrays(bucket, arrays: dict, idx) -> int:
+def _write_arrays(bucket, arrays: dict, idx, everything: bool, marks: dict) -> int:
     # Row bounds: engines whose big arrays are capacity-padded report the
     # USED row count per path — chunks past it are never written (or read
     # back), so the zero-padded tail of a grown array stays on the device.
@@ -184,16 +222,35 @@ def _write_arrays(bucket, arrays: dict, idx) -> int:
             continue
         chunk = _chunk_rows(shape, dtype)
         meta_arrays[path] = {"dtype": str(dtype), "shape": [n_rows, *shape[1:]], "chunk": chunk}
-        host = _read_rows(arr, n_rows)
+        p = prev_arrays.get(path)
+        prev_rows = int(p.get("shape", [0])[0]) if p is not None else 0
+        layout_ok = (
+            p is not None
+            and p.get("dtype") == str(dtype)
+            and list(p.get("shape", []))[1:] == list(shape[1:])
+            and p.get("chunk") == chunk
+            and prev_rows <= n_rows  # row growth is compatible
+        )
         n_total = _n_chunks(n_rows, chunk)
-        for c in range(n_total):
-            blk = np.ascontiguousarray(host[c * chunk : min((c + 1) * chunk, n_rows)])
-            bucket.put(_chunk_key(path, c), blk.tobytes())
+        mark = marks.get(path, _CLEAN)
+        if everything or not layout_ok or mark is ALL:
+            dirty = np.arange(n_total)
+        elif mark is _CLEAN:
+            dirty = np.empty(0, np.int64)  # a clean array keeps its chunks
+        else:
+            rows = mark[(mark >= 0) & (mark < n_rows)]
+            dirty = np.unique(rows // chunk)
+        if layout_ok and prev_rows < n_rows:
+            # The previous last chunk may have been partial: rewrite it (and
+            # everything after) so record lengths match the grid
+            first_new = max(0, _n_chunks(prev_rows, chunk) - 1)
+            dirty = np.union1d(dirty, np.arange(first_new, n_total))
+        for blk, c in zip(_fetch_chunks(arr, dirty, chunk, n_rows), dirty):
+            bucket.put(_chunk_key(path, int(c)), np.ascontiguousarray(blk).tobytes())
             written += 1
         # Stale chunks past the new grid (shape shrink or layout change)
-        p = prev_arrays.get(path)
         if p is not None:
-            prev_total = _n_chunks(int(p.get("shape", [0])[0]), int(p.get("chunk", 1)))
+            prev_total = _n_chunks(prev_rows, int(p.get("chunk", 1)))
             for c in range(n_total, prev_total):
                 bucket.delete(_chunk_key(path, c))
     # Arrays that vanished since the last snapshot (or moved to small)

@@ -12,13 +12,18 @@ is ``BENCH_MODE=ivfpq`` (IVF-PQ, M = max(D // 16, 4) subvectors of 256
 centroids, fit at 10,000 points, as ``bench.py:_quantizer``), and
 ``--fused`` is ``BENCH_MODE=fused`` (``bench.py:_run_fused``: the fused
 two-view engine over ``embedding_like_views``, below, with 4 copies unless
-``--copies`` says otherwise; it refuses the options it has no use for). The
-Vamana engine is not ported yet.
+``--copies`` says otherwise; it refuses the options it has no use for).
+``--engine vamana`` is ``BENCH_MODE=plain`` (the JAX tool's ``VamanaBench``):
+the Vamana graph at searchSize 75, degreeBound 64, alpha 1.2 (the reference's
+v1 settings) built by the two-pass ``insert_bulk``, then queries at L = 40
+(``--search-size``), W = 2, in batches of 8,192; it prints the build's seconds
+by pass and overflow rounds, and the walk's hops per query.
 
 Usage (the defaults are ``bench.py``'s: 1,000,000 x 128, 32,768 queries in
 batches of 4,096, spread 0.5, euclidean, assignCopies 2, k = 10):
 
     python3 -m semadb_tpu_torch.tools.annbench [--device cuda] [--n 1000000] [--sweep 48,96] ...
+    python3 -m semadb_tpu_torch.tools.annbench --engine vamana [--device cuda] [--n 1000000] ...
 
 From N x D >= 2^28 on a CUDA device the data come from the device generator
 (``embedding_like_device``) and stay on the card, as ``bench.py`` does; the
@@ -48,7 +53,7 @@ import numpy as np
 import torch
 
 from semadb_tpu_torch.models.quantizer import ProductQuantizerParams, Quantizer
-from semadb_tpu_torch.models.schema import VectorIVFParams
+from semadb_tpu_torch.models.schema import VectorIVFParams, VectorVamanaParams
 from semadb_tpu_torch.tools.datasets import (
     AnnDataset,
     compute_ground_truth,
@@ -61,16 +66,27 @@ from semadb_tpu_torch.utils.pipeline import AsyncDispatcher
 
 
 class AnnBench:
-    """init/fit/query protocol over one index (the JAX tool's ``VamanaBench``
-    with ``engine="ivf"``)."""
+    """init/fit/query protocol over one index (the JAX tool's ``VamanaBench``):
+    ``engine="ivf"`` or ``"vamana"``."""
 
     def __init__(self, dim: int, device, metric: str = "euclidean", engine: str = "ivf",
-                 assign_copies: int = 2, quantizer: Optional[Quantizer] = None):
+                 assign_copies: int = 2, quantizer: Optional[Quantizer] = None, search_size: int = 75,
+                 degree_bound: int = 64, alpha: float = 1.2):
+        self.device = torch.device(device)
+        self.engine = engine
+        if engine == "vamana":
+            from semadb_tpu_torch.index.vamana import IndexVamana
+
+            self.index = IndexVamana(
+                VectorVamanaParams(vector_size=dim, distance_metric=metric, search_size=search_size,
+                                   degree_bound=degree_bound, alpha=alpha, quantizer=quantizer),
+                self.device,
+            )
+            return
         if engine != "ivf":
-            raise NotImplementedError(f"engine {engine!r}: the Vamana engine is not ported to semadb_tpu_torch yet")
+            raise ValueError(f"engine {engine!r}: the bench runs 'ivf' or 'vamana'")
         from semadb_tpu_torch.index.ivf import IndexIVF
 
-        self.device = torch.device(device)
         self.index = IndexIVF(
             VectorIVFParams(vector_size=dim, distance_metric=metric, assign_copies=assign_copies,
                             quantizer=quantizer),
@@ -90,12 +106,15 @@ class AnnBench:
         self.index.flush_pending()
         self.index.sync()
         t2 = time.perf_counter()
+        if self.engine == "vamana":
+            return {"build_s": t2 - t0, "split": dict(self.index.build_seconds)}
         split = {"upload_s": t1 - t0, **self.index.refit_seconds}
         return {"build_s": t2 - t0, "refit_s": t2 - t1, "split": split}
 
     def query_batch(self, test: np.ndarray, k: int, batch: int = 1024, num_probes: int = 0):
         """Pipelined throughput pass: every batch is enqueued without waiting,
-        at most 8 in flight (AsyncDispatcher), results read back in order."""
+        at most 8 in flight (AsyncDispatcher), results read back in order.
+        ``num_probes`` is the IVF probe count, or the Vamana walk's L."""
         out = np.empty((len(test), k), np.int32)
         t0 = time.perf_counter()
         pipe = AsyncDispatcher(depth=8)
@@ -135,6 +154,7 @@ def prime_profiler() -> None:
 # probe_gemm and probe_scale_shift. Anything else is "other", listed by name
 # in the profile.
 STAGES = (
+    ("k10_beam_search", ("vamana_beam_search_kernel",)),
     ("k9_adc_scan", ("pq_probe_scan_kernel", "pq_scan_dense_kernel")),
     ("k3_probed_slab_scan", ("ivf_scan_", "Memset")),
     ("k4_dedup_rerank", ("rerank_kernel",)),
@@ -151,8 +171,10 @@ def stage_of(kernel: str) -> str:
     return next((stage for stage, pats in STAGES if any(pat in kernel for pat in pats)), "other")
 
 
-def profile_batch(index, queries: np.ndarray, k: int, num_probes: int = 0) -> dict:
-    """One ``torch.profiler`` pass over one search batch on a CUDA device:
+def profile_batch(index, queries: np.ndarray, k: int, num_probes: int = 0, search_size: Optional[int] = None) -> dict:
+    """One ``torch.profiler`` pass over one search batch on a CUDA device
+    (``num_probes`` for the IVF and fused engines, ``search_size``, the
+    walk's L, for the Vamana engine):
     device time by kernel and op and by stage (``STAGES``), the busy share of
     the wall time, and the number of kernel launches."""
     from torch.autograd import DeviceType
@@ -162,7 +184,10 @@ def profile_batch(index, queries: np.ndarray, k: int, num_probes: int = 0) -> di
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prime_profiler()
         t0 = time.perf_counter()
-        index.search_batch_async(queries, k, num_probes=num_probes)
+        if search_size is None:
+            index.search_batch_async(queries, k, num_probes=num_probes)
+        else:
+            index.search_batch_async(queries, k, search_size=search_size)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -203,16 +228,18 @@ def _rows(a, idx: np.ndarray) -> torch.Tensor:
 
 def run(
     ds: AnnDataset, k: int = 10, batch: int = 1024, num_probes: int = 0, device="cuda",
-    profile: bool = False, keep: Optional[dict] = None, sweep=(), **index_kw,
+    profile: bool = False, keep: Optional[dict] = None, sweep=(), engine: str = "ivf", search_size: int = 0,
+    **index_kw,
 ) -> dict:
-    """The JAX tool's ``run`` for the IVF engine on ``device``, recall over
-    every query. ``num_probes`` 0 = the engine's default; each probe count
-    in ``sweep`` is one more operating point on the same build (best of two
-    passes). ``ds`` may hold numpy arrays or tensors (the device generator's;
-    then nothing of the corpus visits the host). ``keep``, when given,
-    receives the built ``index`` and the ``queries`` (for callers that go on
-    to time the kernels on the cell's own operands), the ``bench`` and the
-    ``ground_truth``."""
+    """The JAX tool's ``run`` on ``device``, recall over every query.
+    ``engine="ivf"``: ``num_probes`` 0 = the engine's default, and each probe
+    count in ``sweep`` is one more operating point on the same build (best of
+    two passes). ``engine="vamana"``: ``search_size`` is the query walk's L
+    (0 = the index's searchSize). ``ds`` may hold numpy arrays or tensors
+    (the device generator's; then nothing of the corpus visits the host).
+    ``keep``, when given, receives the built ``index`` and the ``queries``
+    (for callers that go on to time the kernels on the cell's own operands),
+    the ``bench`` and the ``ground_truth``."""
     device = torch.device(device)
 
     def stage(msg: str) -> None:
@@ -239,7 +266,10 @@ def run(
     drand = float((_rows(ds.train, ra) - _rows(ds.train, rb)).norm(dim=1).mean())
     margin = float(d_gt_k[:2048].mean() / max(drand, 1e-12))
     n_train = len(ds.train)
-    bench = AnnBench(dim=ds.train.shape[1], device=device, metric=ds.metric, **index_kw)
+    bench = AnnBench(dim=ds.train.shape[1], device=device, metric=ds.metric, engine=engine, **index_kw)
+    vamana = engine == "vamana"
+    # The query pass's operating point: the probe count, or the walk's L
+    op = search_size if vamana else num_probes
     stage(f"fit start n={n_train}")
     build = bench.fit_dataset(ds)
     stage(f"fit done {build['build_s']:.1f}s {build['split']}")
@@ -256,11 +286,11 @@ def run(
     def recall_of(ids: np.ndarray) -> float:
         return float(np.mean([len(set(ids[i]) & set(gt[i])) / k for i in range(nq)]))
 
-    bench.query_batch(ds.test[:batch], k, batch, num_probes)  # warm-up
-    ids, wall = bench.query_batch(ds.test, k, batch, num_probes)
+    bench.query_batch(ds.test[:batch], k, batch, op)  # warm-up
+    ids, wall = bench.query_batch(ds.test, k, batch, op)
     walls = [wall]
     for _ in range(2):
-        ids2, w2 = bench.query_batch(ds.test, k, batch, num_probes)
+        ids2, w2 = bench.query_batch(ds.test, k, batch, op)
         walls.append(w2)
         if w2 < wall:
             ids, wall = ids2, w2
@@ -268,20 +298,8 @@ def run(
     stage(f"query done {wall:.3f}s (best of 3; spread {walls})")
     recall = recall_of(ids)
     recall_eps = eps_recall(ids)
-    probes = idx._num_probes(num_probes)
-    sweep_rows = []
-    for p in sweep:
-        if idx._num_probes(p) == probes:
-            continue
-        ids2, w2 = bench.query_batch(ds.test, k, batch, p)
-        ids3, w3 = bench.query_batch(ds.test, k, batch, p)
-        if w3 < w2:
-            ids2, w2 = ids3, w3
-        row = {"probes": idx._num_probes(p), "recall@10": recall_of(ids2), "recall_eps@10": eps_recall(ids2),
-               "qps": nq / w2, "qps_spread": sorted([nq / w2, nq / w3])}
-        stage(f"sweep {row}")
-        sweep_rows.append(row)
     out = {
+        "engine": engine,
         "dataset": ds.name,
         "metric": ds.metric,
         "n": n_train,
@@ -295,25 +313,52 @@ def run(
         "build_split_s": build["split"],
         "ground_truth_s": gt_s,
         "margin": margin,
-        "clusters": int(idx.centroids.shape[0]),
-        "slab": int(idx.slab),
-        "slab_dtype": "u8 PQ codes" if idx.pq_active else str(idx.slabs.dtype).replace("torch.", ""),
-        "two_level": idx._sup_cents is not None,
-        "probes": probes,
-        "sweep": sweep_rows,
-        "overflow_rows": int(idx.ovf_ids.shape[0] - len(idx._ovf_free)),
         "generator": "device" if on_device else "host",
         "device": str(device),
     }
-    if idx.pq_config is not None:
-        out["pq"] = {"m": idx.pq_config.num_subvectors, "k": idx.pq_config.num_centroids,
-                     "trigger": idx.pq_config.trigger, "active": idx.pq_active}
+    if vamana:
+        L = max(op or idx.params.search_size, k)
+        walk = idx.query_walk(ds.test[:batch], L)
+        out.update({
+            "search_size": L, "expand_width": 2, "degree_bound": idx.params.degree_bound,
+            "build_search_size": idx.params.search_size, "alpha": idx.params.alpha,
+            "hops_per_query": float(walk.query_hops.float().mean()), "hops_max": int(walk.hops),
+            "expanded_per_query": float(walk.counts[:, 0].float().mean()),
+            "rows_scored_per_query": float(walk.counts[:, 1].float().mean()),
+        })
+    else:
+        probes = idx._num_probes(num_probes)
+        sweep_rows = []
+        for p in sweep:
+            if idx._num_probes(p) == probes:
+                continue
+            ids2, w2 = bench.query_batch(ds.test, k, batch, p)
+            ids3, w3 = bench.query_batch(ds.test, k, batch, p)
+            if w3 < w2:
+                ids2, w2 = ids3, w3
+            row = {"probes": idx._num_probes(p), "recall@10": recall_of(ids2), "recall_eps@10": eps_recall(ids2),
+                   "qps": nq / w2, "qps_spread": sorted([nq / w2, nq / w3])}
+            stage(f"sweep {row}")
+            sweep_rows.append(row)
+        out.update({
+            "clusters": int(idx.centroids.shape[0]),
+            "slab": int(idx.slab),
+            "slab_dtype": "u8 PQ codes" if idx.pq_active else str(idx.slabs.dtype).replace("torch.", ""),
+            "two_level": idx._sup_cents is not None,
+            "probes": probes,
+            "sweep": sweep_rows,
+            "overflow_rows": int(idx.ovf_ids.shape[0] - len(idx._ovf_free)),
+        })
+        if idx.pq_config is not None:
+            out["pq"] = {"m": idx.pq_config.num_subvectors, "k": idx.pq_config.num_centroids,
+                         "trigger": idx.pq_config.trigger, "active": idx.pq_active}
     if device.type == "cuda":
         out["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
         out["resident_gib"] = torch.cuda.memory_allocated(device) / 2**30
         out["card"] = card()
         if profile:
-            out["profile"] = profile_batch(idx, ds.test[:batch], k, num_probes)
+            out["profile"] = (profile_batch(idx, ds.test[:batch], k, search_size=op) if vamana
+                              else profile_batch(idx, ds.test[:batch], k, num_probes=op))
     if keep is not None:
         keep.update(index=idx, queries=ds.test, bench=bench, ground_truth=gt)
     return out
@@ -419,11 +464,11 @@ def run_fused(n: int, dim: int, n_queries: int, k: int = 10, batch: int = 4096, 
 
 
 def main(argv=None, keep: Optional[dict] = None) -> int:
-    ap = argparse.ArgumentParser(description="ann-benchmarks-style run of the port's IVF index")
+    ap = argparse.ArgumentParser(description="ann-benchmarks-style run of the port's IVF or Vamana index")
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--dim", type=int, default=128)
     ap.add_argument("--queries", type=int, default=32768)
-    ap.add_argument("--batch", type=int, default=4096)
+    ap.add_argument("--batch", type=int, default=None, help="4096, or 8192 with --engine vamana")
     ap.add_argument("--spread", type=float, default=0.5)
     ap.add_argument("--metric", default="euclidean", choices=["euclidean", "cosine"])
     ap.add_argument("--copies", type=int, default=None,
@@ -435,9 +480,19 @@ def main(argv=None, keep: Optional[dict] = None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--quantizer", default="none", choices=["none", "product"],
                     help="product: IVF-PQ (bench.py's BENCH_MODE=ivfpq)")
+    ap.add_argument("--engine", default="ivf", choices=["ivf", "vamana"],
+                    help="vamana: bench.py's BENCH_MODE=plain (the graph at L 75, R 64, alpha 1.2)")
+    ap.add_argument("--search-size", type=int, default=40,
+                    help="the Vamana query walk's L (bench.py's BENCH_MODE=plain: 40)")
     ap.add_argument("--fused", action="store_true",
                     help="bench.py's BENCH_MODE=fused: two views (dim, max(dim // 2, 16)), the fused engine")
     args = ap.parse_args(argv)
+    vamana = args.engine == "vamana"
+    if args.batch is None:
+        args.batch = 8192 if vamana else 4096
+    if vamana and (args.fused or args.quantizer != "none" or args.sweep or args.probes or args.copies):
+        ap.error("--engine vamana takes none of --fused, --quantizer, --sweep, --probes, --copies "
+                 "(the quantized walk comes in slice 13)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("annbench: --device cuda needs a CUDA device (pass --device cpu to run the plain versions)")
@@ -464,9 +519,10 @@ def main(argv=None, keep: Optional[dict] = None) -> int:
     data_s = time.perf_counter() - t0
     out = run(
         ds, k=args.k, batch=args.batch, num_probes=args.probes, device=device,
-        profile=device.type == "cuda", keep=keep, assign_copies=2 if args.copies is None else args.copies,
-        quantizer=quantizer,
-        sweep=[int(p) for p in args.sweep.split(",") if p],
+        profile=device.type == "cuda", keep=keep, quantizer=quantizer,
+        sweep=[int(p) for p in args.sweep.split(",") if p], engine=args.engine,
+        **({"search_size": args.search_size} if vamana else
+           {"assign_copies": 2 if args.copies is None else args.copies}),
     )
     out["data_s"] = data_s
     print(json.dumps(out))

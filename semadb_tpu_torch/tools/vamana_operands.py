@@ -1,0 +1,138 @@
+"""Operands for holding K10 and K11 against their plain versions, and their
+least traffic.
+
+Random graphs, queries and prune pools made from a numpy seed, for the card
+tests (``tests/test_torch_cuda.py``) and ``chip_smoke.py``; and the bytes
+each kernel must move for given operands (:func:`k10_least_bytes`,
+:func:`k11_least_bytes`), from which ``chip_smoke.py`` takes their bounds. With
+``integer=True`` every coordinate is an integer in [-8, 8] (the start row
+too), so that at D ≤ 128 every euclidean, dot and cosine term and sum is
+exact in f32 and a kernel must equal its plain version bit for bit; haversine
+points are then integer degrees, whose meters are not exact but are computed
+by the same operations on both sides.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from semadb_tpu_torch.models import constants as C
+from semadb_tpu_torch.ops.distance import gather_distance
+from semadb_tpu_torch.ops.kernels import vamana_search
+from semadb_tpu_torch.ops.topk import sort_by_distance
+
+NIL = -1
+START_ID = C.START_NODE_ID
+
+
+def _points(rng, n: int, dim: int, integer: bool, metric: str) -> np.ndarray:
+    if metric == C.DISTANCE_HAVERSINE:
+        if integer:
+            return rng.integers(-8, 9, (n, 2)).astype(np.float32)
+        return np.stack([rng.uniform(-80, 80, n), rng.uniform(-180, 180, n)], 1).astype(np.float32)
+    if integer:
+        return rng.integers(-8, 9, (n, dim)).astype(np.float32)
+    x = rng.standard_normal((n, dim)).astype(np.float32)
+    if metric in (C.DISTANCE_COSINE, C.DISTANCE_DOT):
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+    return x
+
+
+def random_graph(n: int, dim: int, degree: int, *, integer: bool, metric: str, seed: int, device,
+                 nil_rows: float = 0.25):
+    """A graph of ``n`` user points (ids 2..n+1) and the start node (id 1):
+    vectors f32[n + 2, D] (row 0 zero) and adjacency i32[n + 2, R] of random
+    edges to ids in [1, n + 2), a node's own id never among them; a share
+    ``nil_rows`` of the rows keep a random number of edges, the rest -1."""
+    rng = np.random.default_rng(seed)
+    cap = n + 2
+    vectors = np.zeros((cap, dim), np.float32)
+    vectors[1:] = _points(rng, cap - 1, dim, integer, metric)
+    adjacency = rng.integers(1, cap, (cap, degree)).astype(np.int32)
+    own = np.arange(cap)[:, None]
+    adjacency = np.where(adjacency == own, np.where(own == START_ID, NIL, START_ID), adjacency).astype(np.int32)
+    short = rng.random(cap) < nil_rows
+    keep = rng.integers(0, degree + 1, cap)
+    adjacency[np.arange(degree)[None, :] >= np.where(short, keep, degree)[:, None]] = NIL
+    adjacency[0] = NIL
+    return (torch.from_numpy(vectors).to(device), torch.from_numpy(adjacency).to(device))
+
+
+def random_queries(b: int, dim: int, *, integer: bool, metric: str, seed: int, device) -> torch.Tensor:
+    return torch.from_numpy(_points(np.random.default_rng(seed), b, dim, integer, metric)).to(device)
+
+
+def random_seeds(b: int, s: int, cap: int, *, seed: int, device) -> torch.Tensor:
+    """Seed ids i32[B, S] in [1, cap) with a quarter of them -1."""
+    rng = np.random.default_rng(seed)
+    seeds = rng.integers(1, cap, (b, s)).astype(np.int32)
+    seeds[rng.random((b, s)) < 0.25] = NIL
+    return torch.from_numpy(seeds).to(device)
+
+
+def prune_pools(vectors: torch.Tensor, b: int, p: int, metric: str, *, seed: int):
+    """Pools for K11: self ids i32[B] and per node P candidates (random ids,
+    repeats and the node's own id among them, a random tail of -1) with their
+    distances to the node, sorted by (distance, id), (inf, -1) empty."""
+    rng = np.random.default_rng(seed)
+    cap = vectors.shape[0]
+    dev = vectors.device
+    self_ids = rng.integers(2, cap, b).astype(np.int32)
+    cand = rng.integers(1, cap, (b, p)).astype(np.int32)
+    cand[:, 0] = self_ids
+    cand[rng.random((b, p)) < 0.05] = NIL
+    cand[np.arange(p)[None, :] >= rng.integers(p // 2, p + 1, b)[:, None]] = NIL
+    cand_t = torch.from_numpy(cand).to(dev)
+    self_t = torch.from_numpy(self_ids).to(dev)
+    d = gather_distance(vectors, cand_t.clamp(0, cap - 1), vectors[self_t.long()], metric)
+    d = d.masked_fill(cand_t == NIL, float("inf"))
+    d, i = sort_by_distance(d, cand_t)
+    return d.contiguous(), i.contiguous(), self_t
+
+
+def k10_least_bytes(vectors, adjacency, queries, search_size: int, expand_width: int, max_hops: int, metric: str,
+                    seeds=None, track_visited: bool = True) -> dict:
+    """The bytes a K10 call on these operands must move: each distinct row
+    that the batch's walks score (the start node, the seeds, the neighbours
+    of every expanded node) and each distinct adjacency row they read, once
+    for the whole batch, plus the queries and seeds read and the outputs
+    written once. The rows come from a run of the plain version whose merges
+    are watched: every id merged in was scored, every expanded id's row was
+    read. Returns the bytes with the distinct and the total counts."""
+    cap, dim = vectors.shape
+    degree = adjacency.shape[1]
+    scored = torch.zeros(cap, dtype=torch.bool, device=vectors.device)
+    expanded = torch.zeros_like(scored)
+    scored[START_ID] = True
+    merge = vamana_search.merge_sorted
+
+    def watched(dists, ids, exp, new_d, new_i, L, compact=True):
+        scored[new_i[new_i != NIL].long()] = True
+        expanded[ids[exp & (ids != NIL)].long()] = True
+        return merge(dists, ids, exp, new_d, new_i, L, compact)
+
+    vamana_search.merge_sorted = watched
+    try:
+        out = vamana_search.beam_search_plain(vectors, adjacency, queries, search_size, expand_width, max_hops,
+                                              metric, seeds, track_visited)
+    finally:
+        vamana_search.merge_sorted = merge
+    b = queries.shape[0]
+    v = vamana_search.ring_size(search_size, expand_width)
+    rows, nodes = int(scored.sum()), int(expanded.sum())
+    io = queries.numel() * 4 + (0 if seeds is None else seeds.numel() * 4) + b * (search_size + v) * 8 + b * 12
+    total_nodes, total_rows = (int(x) for x in out.counts.sum(0).tolist())
+    return {"bytes": rows * dim * 4 + nodes * degree * 4 + io, "distinct_rows_scored": rows,
+            "distinct_nodes_expanded": nodes, "rows_scored": total_rows + b, "nodes_expanded": total_nodes}
+
+
+def k11_least_bytes(cand_d, cand_i, self_ids, dim: int, degree: int) -> dict:
+    """The bytes a K11 call on these pools must move: each distinct live
+    candidate's row once for the whole batch (a pool's live candidates are
+    neither -1 nor the node itself, at a finite distance), the pools and
+    self ids read and the rows written once."""
+    live = (cand_i != NIL) & (cand_i != self_ids[:, None]) & torch.isfinite(cand_d)
+    rows = int(torch.unique(cand_i[live]).numel())
+    io = cand_i.numel() * 8 + self_ids.numel() * 4 + self_ids.numel() * degree * 4
+    return {"bytes": rows * dim * 4 + io, "distinct_rows": rows, "live_rows": int(live.sum())}

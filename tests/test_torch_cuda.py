@@ -1,4 +1,4 @@
-"""K1-K4, K9, the flat index and the IVF index on a CUDA card (skipped without one).
+"""K1-K4, K9-K11, the flat, IVF and Vamana indices on a CUDA card (skipped without one).
 
 These need the card: the CUDA kernels have no CPU mode. The file imports
 neither JAX nor the JAX package, so it also runs where JAX is not installed:
@@ -22,7 +22,7 @@ from semadb_tpu_torch.index.ivf import IndexIVF
 from semadb_tpu_torch.models.quantizer import BinaryQuantizerParams, ProductQuantizerParams, Quantizer
 from semadb_tpu_torch.models.schema import VectorFlatParams, VectorIVFParams
 from semadb_tpu_torch.ops.kernels import gather, hamming, ivf_pq_scan, ivf_rerank, ivf_scan
-from semadb_tpu_torch.ops.topk import pool_errors, tie_rule_errors
+from semadb_tpu_torch.ops.topk import pool_errors, sort_by_distance, tie_rule_errors
 
 CASES = [
     (1, 1, 1), (2, 130, 9), (7, 511, 5), (8, 129, 8), (15, 1000, 48), (16, 4099, 48),
@@ -644,3 +644,184 @@ def test_flat_pq_on_card_matches_cpu(cuda):
         errs = tie_rule_errors(d_cpu[b], i_cpu[b].tolist(), d_card[b], i_card[b].tolist(), full[b],
                                atol=1e-5 * 8 * float(np.abs(full[b][np.isfinite(full[b])]).max()))
         assert not errs, (b, errs[:3])
+
+
+# K10 and K11 (the Vamana walk and prune). On integer-valued graphs every
+# distance is exact in f32 (haversine meters are computed by the same
+# operations on both sides), so every output must equal the plain version's
+# bit for bit. On real-valued data the sums run in another order: the search
+# results are held by the tie rule with distances within 1e-5 of the terms'
+# magnitude, and recall against exact search within 0.002 of the plain
+# version's.
+VAMANA_RTOL = 1e-5
+# (B, L, W, R, metric, seeds, track_visited)
+K10_CASES = [
+    (1, 25, 1, 32, "euclidean", False, True), (7, 40, 2, 64, "euclidean", False, False),
+    (7, 40, 2, 64, "euclidean", True, False), (64, 75, 8, 64, "euclidean", False, True),
+    (64, 75, 8, 64, "euclidean", True, True), (33, 100, 2, 32, "dot", True, False),
+    (33, 75, 8, 64, "cosine", False, True), (17, 40, 2, 64, "haversine", True, True),
+    (5, 512, 8, 64, "euclidean", True, True), (3, 512, 1, 32, "euclidean", False, False),
+    (4096, 75, 8, 64, "euclidean", False, True),
+]
+
+
+def _k10_out(out):
+    return [t.cpu() for t in out]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,L,W,R,metric,seeded,track", K10_CASES)
+def test_vamana_beam_search_matches_plain(cuda, b, L, W, R, metric, seeded, track):
+    from semadb_tpu_torch.ops.kernels import vamana_search
+    from semadb_tpu_torch.tools import vamana_operands as vo
+
+    dim = 2 if metric == "haversine" else 48
+    v, a = vo.random_graph(3000, dim, R, integer=True, metric=metric, seed=b + L, device=cuda)
+    q = vo.random_queries(b, dim, integer=True, metric=metric, seed=W + R, device=cuda)
+    seeds = vo.random_seeds(b, L, v.shape[0], seed=b, device=cuda) if seeded else None
+    before = vamana_search.LAUNCHES
+    got = vamana_search.vamana_beam_search(v, a, q, L, W, 0, metric, seeds=seeds, track_visited=track)
+    torch.cuda.synchronize()
+    assert vamana_search.LAUNCHES == before + 1
+    want = vamana_search.beam_search_plain(v, a, q, L, W, 0, metric, seeds=seeds, track_visited=track)
+    for name, g, w in zip(got._fields, _k10_out(got), _k10_out(want)):
+        assert torch.equal(g, w), (name, (g != w).nonzero()[:5])
+
+
+@pytest.mark.cuda
+def test_vamana_beam_search_edge_graphs(cuda):
+    """A graph of NIL rows only and a graph of one user point: the walk
+    expands the start node and stops."""
+    from semadb_tpu_torch.ops.kernels import vamana_search
+    from semadb_tpu_torch.tools import vamana_operands as vo
+
+    for n, nil_rows in ((1, 0.0), (50, 1.0)):
+        v, a = vo.random_graph(n, 16, 32, integer=True, metric="euclidean", seed=n, device=cuda, nil_rows=nil_rows)
+        if nil_rows == 1.0:
+            a[:] = -1
+        q = vo.random_queries(9, 16, integer=True, metric="euclidean", seed=1, device=cuda)
+        got = vamana_search.vamana_beam_search(v, a, q, 25, 8, 0, "euclidean")
+        want = vamana_search.beam_search_plain(v, a, q, 25, 8, 0, "euclidean")
+        for name, g, w in zip(got._fields, _k10_out(got), _k10_out(want)):
+            assert torch.equal(g, w), name
+        assert int(got.hops.max()) <= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+def test_vamana_beam_search_real_data(cuda, metric):
+    """Real-valued data: top-10 of the L = 40 walk by the tie rule, and
+    recall against exact search within 0.002 of the plain version's."""
+    from semadb_tpu_torch.ops.kernels import vamana_search
+    from semadb_tpu_torch.tools import vamana_operands as vo
+
+    v, a = vo.random_graph(20000, 64, 64, integer=False, metric=metric, seed=5, device=cuda)
+    q = vo.random_queries(512, 64, integer=False, metric=metric, seed=6, device=cuda)
+    got = vamana_search.vamana_beam_search(v, a, q, 40, 2, 0, metric, track_visited=False)
+    want = vamana_search.beam_search_plain(v, a, q, 40, 2, 0, metric, track_visited=False)
+    from semadb_tpu_torch.ops.distance import pairwise_distance
+
+    full = pairwise_distance(q, v, metric).cpu().numpy()
+    mag = float(np.abs(v.cpu().numpy()).max()) ** 2 * v.shape[1]
+
+    def top(out):
+        d, i = sort_by_distance(out.cand_dists, out.cand_ids)
+        return d[:, :10].cpu().numpy(), i[:, :10].cpu().numpy()
+
+    gd, gi = top(got)
+    wd, wi = top(want)
+    for b in range(q.shape[0]):
+        errs = tie_rule_errors(wd[b], wi[b].tolist(), gd[b], gi[b].tolist(), full[b], atol=VAMANA_RTOL * mag)
+        assert not errs, (b, errs[:3])
+    exact = np.argsort(np.where(np.arange(v.shape[0]) >= 2, full, np.inf), axis=1)[:, :10]
+
+    def recall(ids):
+        return np.mean([len(set(ids[b]) & set(exact[b])) / 10 for b in range(len(ids))])
+
+    assert abs(recall(gi) - recall(wi)) <= 0.002
+
+
+# (B, P, R, metric, integer)
+K11_CASES = [
+    (1, 160, 64, "euclidean", True), (7, 224, 64, "euclidean", True), (512, 160, 64, "euclidean", True),
+    (4096, 224, 64, "euclidean", True), (33, 128, 32, "dot", True), (33, 128, 64, "cosine", True),
+    (17, 160, 32, "haversine", True), (9, 1500, 64, "euclidean", True), (300, 224, 64, "euclidean", False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,p,R,metric,integer", K11_CASES)
+def test_vamana_robust_prune_matches_plain(cuda, b, p, R, metric, integer):
+    from semadb_tpu_torch.ops.kernels import vamana_prune
+    from semadb_tpu_torch.tools import vamana_operands as vo
+
+    dim = 2 if metric == "haversine" else 128
+    v, _ = vo.random_graph(5000, dim, 8, integer=integer, metric=metric, seed=p, device=cuda)
+    d, i, self_ids = vo.prune_pools(v, b, p, metric, seed=b)
+    for alpha in (1.0, 1.2):
+        before = vamana_prune.LAUNCHES
+        got = vamana_prune.vamana_robust_prune(d, i, self_ids, v, R, R, alpha, metric)
+        torch.cuda.synchronize()
+        assert vamana_prune.LAUNCHES == before + 1
+        want = vamana_prune.robust_prune_plain(d, i, self_ids, v, R, R, alpha, metric)
+        same = (got == want).all(-1)
+        if integer:
+            assert bool(same.all()), (alpha, (~same).nonzero()[:5])
+        else:
+            # Real data: a decision at a near-tie may part; nearly every row agrees
+            assert float(same.float().mean()) >= 0.99, float(same.float().mean())
+
+
+@pytest.mark.cuda
+def test_vamana_kernels_raise_when_the_build_fails(cuda, monkeypatch):
+    """On a CUDA tensor a wrapper launches its kernel or raises: a library
+    that does not build is an error, never the plain version."""
+    from semadb_tpu_torch.ops.kernels import vamana_prune, vamana_search
+    from semadb_tpu_torch.tools import vamana_operands as vo
+
+    v, a = vo.random_graph(100, 16, 32, integer=True, metric="euclidean", seed=0, device=cuda)
+    q = vo.random_queries(3, 16, integer=True, metric="euclidean", seed=1, device=cuda)
+    d, i, s = vo.prune_pools(v, 3, 64, "euclidean", seed=2)
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("nvcc failed")
+
+    for mod in (vamana_search, vamana_prune):
+        monkeypatch.setattr(mod, "_LIB", None)
+        monkeypatch.setattr(mod, "build_library", broken)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        vamana_search.vamana_beam_search(v, a, q, 25, 2, 0, "euclidean")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        vamana_prune.vamana_robust_prune(d, i, s, v, 32, 32, 1.2, "euclidean")
+    with pytest.raises(ValueError, match="W\\*R"):
+        vamana_search.vamana_beam_search(v, a, q, 25, 20, 0, "euclidean")
+
+
+@pytest.mark.cuda
+def test_vamana_index_on_card_matches_cpu(cuda):
+    """The same inserts, updates and deletes on the card (K10, K11) and on
+    the CPU (their plain versions) on integer vectors: equal graphs, equal
+    searches."""
+    from semadb_tpu_torch.index.vamana import IndexVamana
+    from semadb_tpu_torch.models.schema import VectorVamanaParams
+    from semadb_tpu_torch.ops.kernels import vamana_prune, vamana_search
+
+    rng = np.random.default_rng(3)
+    vecs = rng.integers(-8, 9, (3000, 32)).astype(np.float32)
+    params = VectorVamanaParams(vector_size=32, distance_metric="euclidean", search_size=40, degree_bound=32)
+    on_card, on_cpu = IndexVamana(params, cuda), IndexVamana(params, torch.device("cpu"))
+    start = rng.integers(-8, 9, 32).astype(np.float32)
+    for idx in (on_card, on_cpu):
+        idx.state.vectors[1] = torch.from_numpy(start)
+    before = (vamana_search.LAUNCHES, vamana_prune.LAUNCHES)
+    for idx in (on_card, on_cpu):
+        idx.insert_bulk(np.arange(2, 3002), vecs)
+        idx.insert_update_delete([(i, None) for i in range(2, 300, 3)] + [(i, vecs[i] + 1) for i in range(400, 450)])
+    assert vamana_search.LAUNCHES > before[0] and vamana_prune.LAUNCHES > before[1]
+    for name in ("vectors", "adjacency", "exists"):
+        assert torch.equal(getattr(on_card, name).cpu(), getattr(on_cpu, name)), name
+    queries = rng.integers(-8, 9, (64, 32)).astype(np.float32)
+    for fm in (None, np.arange(on_cpu.capacity) % 2 == 0):
+        d_card, i_card = on_card.search_batch(queries, 10, filter_mask=fm)
+        d_cpu, i_cpu = on_cpu.search_batch(queries, 10, filter_mask=fm)
+        assert np.array_equal(i_card, i_cpu) and np.array_equal(d_card, d_cpu)

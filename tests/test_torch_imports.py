@@ -4,8 +4,8 @@ An ``ast`` walk of ``semadb_tpu_torch/`` and ``chip_smoke.py`` finds no
 ``jax`` import and no ``semadb_tpu`` import. A subprocess with both blocked
 imports every module of the port and runs a tiny slice on ``cpu``. The host
 modules the port keeps its own copies of (``models/``, ``store/``,
-``utils/{compare,grow,itemcache}.py``, ``index/{inverted,text}.py``,
-``csrc/kvstore.cpp``) stay the same as the JAX
+``utils/{compare,dirty,grow,itemcache}.py``, ``index/{inverted,text}.py``,
+``httpapi/v1.py``, ``csrc/kvstore.cpp``) stay the same as the JAX
 package's originals, apart from their imports and the store's native build;
 so do the definitions it copies from ``utils/pipeline.py`` (all but the
 readback), ``tools/datasets.py`` (the host generators and ground truth),
@@ -102,10 +102,12 @@ def _copies():
             if f.endswith(".py") and (sub, f) != ("store", "native.py"):
                 yield f"{sub}/{f}"
     yield "utils/compare.py"
+    yield "utils/dirty.py"
     yield "utils/grow.py"
     yield "utils/itemcache.py"
     yield "index/inverted.py"
     yield "index/text.py"
+    yield "httpapi/v1.py"
 
 
 class _Normalize(ast.NodeTransformer):

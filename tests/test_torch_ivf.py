@@ -570,7 +570,8 @@ def test_jax_written_ivf_shard_opens_in_port(tmp_path, journal):
 def test_product_quantizer_on_ivf_is_admitted_and_vamana_refused():
     """The manager admits a product quantizer on vectorIVF and the engine
     takes it (``tests/test_torch_ivfpq.py`` holds it against the JAX
-    package); vectorVamana is still refused by name."""
+    package); a plain vectorVamana is admitted since the Vamana slice, and a
+    quantized one is refused, naming the slice that brings it."""
     schema = port_models.IndexSchema.from_dict({"v": {"type": "vectorIVF", "vectorIVF": {
         "vectorSize": 16, "distanceMetric": "euclidean",
         "quantizer": {"type": "product", "product": {"numCentroids": 16, "numSubVectors": 4}}}}})
@@ -578,9 +579,12 @@ def test_product_quantizer_on_ivf_is_admitted_and_vamana_refused():
     idx = port_ivf.IndexIVF(schema.get("v").vector_ivf, CPU)
     assert idx.pq_config is not None and idx.pq_config.num_subvectors == 4 and not idx.pq_active
     check_supported(port_models.IndexSchema.from_dict(IVF_SCHEMA))
-    with pytest.raises(ValidationError, match="vectorVamana"):
+    check_supported(port_models.IndexSchema.from_dict({"v": {"type": "vectorVamana", "vectorVamana": {
+        "vectorSize": 4, "distanceMetric": "euclidean"}}}))
+    with pytest.raises(ValidationError, match="vectorVamana.*slice 13"):
         check_supported(port_models.IndexSchema.from_dict({"v": {"type": "vectorVamana", "vectorVamana": {
-            "vectorSize": 4, "distanceMetric": "euclidean"}}}))
+            "vectorSize": 16, "distanceMetric": "euclidean",
+            "quantizer": {"type": "product", "product": {"numCentroids": 16, "numSubVectors": 4}}}}}))
 
 
 def test_ground_truth_on_device_matches_jax_and_host(monkeypatch):
@@ -606,7 +610,8 @@ def test_ground_truth_on_device_matches_jax_and_host(monkeypatch):
 
 def test_annbench_runs_the_ivf_engine_on_cpu(capsys):
     """The port's annbench at a small size on ``cpu``: one JSON line with the
-    bench's fields; the Vamana engine is refused by name."""
+    bench's fields; the engine "vamana" makes the Vamana index (its own
+    run is in tests/test_torch_vamana_build.py) and an unknown one is refused."""
     import json
 
     from semadb_tpu_torch.tools import annbench
@@ -616,5 +621,8 @@ def test_annbench_runs_the_ivf_engine_on_cpu(capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["recall@10"] >= 0.95 and out["qps"] > 0 and out["n"] == 3000 and out["batch"] == 32
     assert set(out["build_split_s"]) >= {"upload_s", "kmeans_s", "pack_s", "slab_build_s"}
-    with pytest.raises(NotImplementedError, match="Vamana"):
-        annbench.AnnBench(dim=16, device="cpu", engine="vamana")
+    from semadb_tpu_torch.index.vamana import IndexVamana
+
+    assert isinstance(annbench.AnnBench(dim=16, device="cpu", engine="vamana").index, IndexVamana)
+    with pytest.raises(ValueError, match="engine"):
+        annbench.AnnBench(dim=16, device="cpu", engine="hnsw")

@@ -276,23 +276,30 @@ def test_jax_replays_port_journal(tmp_path):
 
 
 def test_port_admits_fused_and_pq_and_refuses_vamana(tmp_path):
-    """vectorVamana is still refused by name; vectorFused and a product
-    quantizer, ported since, are admitted."""
+    """A quantized vectorVamana is refused by name (slice 13 brings it);
+    vectorFused, a product quantizer and a plain vectorVamana, ported since,
+    are admitted."""
     node, srv, base = _start("port", str(tmp_path))
     try:
-        vamana = {"v": {"type": "vectorVamana", "vectorVamana": {"vectorSize": 4, "distanceMetric": "euclidean"}}}
+        vamana = {"v": {"type": "vectorVamana", "vectorVamana": {
+            "vectorSize": 4, "distanceMetric": "euclidean",
+            "quantizer": {"type": "binary", "binary": {"threshold": 0.0}}}}}
         r = requests.post(base, json={"id": "nope", "indexSchema": vamana}, headers=HEADERS)
         assert r.status_code == 400 and "vectorVamana" in r.json()["error"], r.text
+        assert "slice 13" in r.json()["error"], r.text
         for name, schema in (
             ("fusedcol", {"v": {"type": "vectorFused", "vectorFused": {"views": [
                 {"vectorSize": 4, "distanceMetric": "euclidean"}, {"vectorSize": 4, "distanceMetric": "dot"}]}},
               "title": {"type": "text", "text": {"analyser": "standard"}}}),
             ("pqcol", {"v": {"type": "vectorFlat", "vectorFlat": {"vectorSize": 8, "distanceMetric": "euclidean",
                     "quantizer": {"type": "product", "product": {"numCentroids": 16, "numSubVectors": 2}}}}}),
+            ("vamanacol", {"v": {"type": "vectorVamana", "vectorVamana": {"vectorSize": 4,
+                                                                          "distanceMetric": "euclidean"}}}),
         ):
             r = requests.post(base, json={"id": name, "indexSchema": schema}, headers=HEADERS)
             assert r.status_code == 200, r.text
-        assert sorted(c["id"] for c in requests.get(base, headers=HEADERS).json()["collections"]) == ["fusedcol", "pqcol"]
+        assert sorted(c["id"] for c in requests.get(base, headers=HEADERS).json()["collections"]) == [
+            "fusedcol", "pqcol", "vamanacol"]
     finally:
         srv.shutdown()
         node.close()
