@@ -201,13 +201,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    versions on the card, on integer-valued graphs and pools (every
    coordinate an integer in [-8, 8], so every distance is exact in f32),
    every output bit for bit: K10's candidate lists, visited rings, hops and
-   counts at L in {25, 40, 75, 100, 512}, W in {1, 2, 8}, R in {32, 64}, B
-   in {1, 7, 512, 4096, 8192}, with and without seeds and the ring, a graph
-   of mostly NIL-padded rows and a graph of one point, all four metrics (15
-   cases), and 51 repeated calls at the query and pass-1 shapes; K11's rows
-   at B in {1, 7, 512, 4096}, P in {128, 160, 224, 1500}, R in {32, 64},
-   all four metrics, D = 1536, alpha 1.0 and 1.2 (18 cases), and 51 repeated
-   calls at pass 2's shape. On real-valued data: K10's top-10 by the tie
+   counts at L in {1, 25, 40, 75, 100, 129, 512}, W in {1, 2, 8}, R in {32,
+   64, 129}, B in {1, 5, 7, 9, 17, 33, 512, 1024, 1025, 4096, 4097, 8192},
+   with and without seeds and the ring, a graph of mostly NIL-padded rows, a
+   graph of one point, graphs with rows at distance inf and with D = 37 (off
+   the 16-byte grid), all four metrics (15 cases, and 10 at the boundaries
+   of the second design's geometry: one warp or a block a query, 4 or 8
+   warps, a batch no multiple of the queries a block), and 51 repeated calls
+   at the query, pass-1 and pass-2 shapes; K11's rows at B in {1, 7, 9, 512,
+   4096}, P in {33, 128, 160, 224, 1500, 2048}, R in {32, 64}, all four
+   metrics, D in {2, 128, 131, 1536} (pools staged in shared memory and
+   pools read from device memory, by 16-byte and by element loads), alpha
+   1.0 and 1.2 (24 cases), and 51 repeated calls at pass 2's shape. On real-valued data: K10's top-10 by the tie
    rule within 1e-5 of the terms' magnitude and recall@10 within 0.002 of
    the plain version's (B = 2,048 over 100,000 points, euclidean and
    cosine); K11 at least 99% of the rows equal (a decision at a near-tie may
@@ -220,13 +225,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    k = 10. Recall@10 against the exact f32 ground truth must be >= 0.98
    (the JAX package read 0.9989); K10 and K11 must have launched; it prints
    the build's seconds by pass and overflow rounds, QPS (best of 3), hops a
-   query, peak memory and one batch under torch.profiler. Then K10 on the
-   cell's first batch (its entry seeds) and at pass 1's walk (B = 512,
-   L = 75, W = 8), and K11 on pools the insert makes from the cell's graph
-   at pass 2's shape (B = 4,096, P = 224) and pass 1's (B = 512, P = 160):
+   query, peak memory and one batch under torch.profiler, and K10's and
+   K11's launches split by shape (pass 1, pass 2, overflow rounds, queries:
+   the build's own counts). Then K10 on the cell's first batch (its entry
+   seeds), at pass 1's walk (B = 512, L = 75, W = 8) and at pass 2's
+   (B = 4,096), and K11 on pools the insert makes from the cell's graph at
+   pass 2's shape (B = 4,096, P = 224), pass 1's (B = 512, P = 160) and one
+   overflow round's (the first OVERFLOW_CHUNK targets whose rows the
+   backedges of 4,096 of the graph's own rows overflow, P = R + k_in):
    checked against the plain versions as in phase 14, timed (profiler,
    mean of 10 calls, the CUDA-event fallback of P2), the plain versions
-   timed, the bounds from the kernels' own counts.
+   timed, the bounds from each distinct row the walks score and each
+   distinct live pool row. With ``--vamana-baseline DIR`` (a directory
+   holding another ``vamana_search.cu``, ``vamana_prune.cu`` and
+   ``vamana_common.cuh`` with the same C interfaces, such as the parent
+   commit's ``semadb_tpu_torch/csrc``) those libraries are built, checked on
+   the same operands and timed beside the tree's K10 and K11 at each of
+   those shapes, in turns: baseline, tree, tree, baseline.
 16. v1 and v2 over HTTP with ``config/singleServer.yaml``, one shard each: a
    v1 collection (vectorSize 128, euclidean) and a v2 ``vectorVamana``
    collection with a ``string`` property, 20,000 ``embedding_like`` points
@@ -235,15 +250,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (v2): every distance numpy's within 1e-5 relative, recall@10 >= 0.95.
    Then 1,000 deletes and 1,000 updates a collection over HTTP: no deleted
    id may come back, the same checks hold, 20 updated points find
-   themselves; a quantized ``vectorVamana`` must be refused naming slice 13.
+   themselves; a quantized ``vectorVamana`` must be refused naming slice 14.
    Then a flush (the dirty-row snapshot), close and reopen: every search
    must answer the same. K10 and K11 must have launched.
 
 Each kernel's bound is its bytes (each input read once, each output
 written once; for K2 each distinct row once; for K3 each distinct probed
-cluster once, for K4 each distinct live pool row once; for K10 every row it
-scored and every adjacency row it read, from its own counts; for K11 each
-live candidate's row once; for K9 each query's
+cluster once, for K4 each distinct live pool row once; for K10 each
+distinct row the batch's walks score and each distinct adjacency row they
+read once; for K11 each distinct live candidate's row once; for K9 each query's
 table once, each distinct probed cluster's ids once and the codes of its
 live slots once) over 3.35 TB/s, from this run's inputs. K2 does no arithmetic. K1's work is bit operations, and the
 card's data sheet gives no rate for the tensor cores' single-bit MMA, so
@@ -2258,7 +2273,12 @@ LIBRARY_NONE_K10 = "none: no one PyTorch call walks a graph"
 LIBRARY_NONE_K11 = "none: no one PyTorch call prunes a pool"
 # K10 on integer-valued graphs, every output bit for bit: (B, L, W, R,
 # metric, seeds, track_visited, graph); "nil": 90% of the rows keep a random
-# number of edges, "one": a graph of one user point
+# number of edges, "one": a graph of one user point, "inf": the start node
+# and every 7th row at distance inf (a real entry at inf heads the list, so
+# the seeds' merge keeps every new entry), "d37": D = 37 (element loads). The last 10 are the boundaries of the geometry (csrc/vamana_search.cu
+# pick_geometry): a batch no multiple of the 4 queries a block, B on either
+# side of 1,024 (8 or 4 warps a query), W*R and S past 128 (a block a query),
+# L = 1
 K10_CASES = [
     (1, 25, 1, 32, "euclidean", False, True, "random"), (7, 40, 2, 64, "euclidean", True, False, "random"),
     (8192, 40, 2, 64, "euclidean", True, False, "random"), (512, 75, 8, 64, "euclidean", False, True, "random"),
@@ -2268,23 +2288,35 @@ K10_CASES = [
     (7, 75, 8, 64, "euclidean", False, True, "nil"), (7, 25, 8, 32, "euclidean", True, True, "one"),
     (8192, 40, 2, 64, "cosine", True, False, "random"), (512, 75, 8, 64, "dot", False, True, "random"),
     (7, 40, 2, 64, "haversine", False, False, "random"),
+    (4097, 40, 2, 64, "euclidean", True, False, "random"), (1024, 75, 8, 64, "euclidean", True, True, "random"),
+    (1025, 75, 8, 64, "euclidean", False, True, "random"), (5, 40, 1, 129, "euclidean", False, True, "random"),
+    (9, 129, 2, 64, "euclidean", True, False, "random"), (17, 1, 1, 32, "euclidean", False, True, "random"),
+    (33, 40, 2, 64, "euclidean", True, False, "inf"), (33, 75, 8, 64, "euclidean", True, True, "inf"),
+    (33, 40, 2, 64, "euclidean", True, False, "d37"), (33, 75, 8, 64, "dot", False, True, "d37"),
 ]
-K10_REPEAT_CASES = (2, 3)  # indices into K10_CASES: the query shape and the pass-1 shape
+K10_REPEAT_CASES = (2, 3, 4)  # indices into K10_CASES: the query, pass-1 and pass-2 shapes
 # K11 on integer-valued pools, rows bit for bit at alpha 1.0 and 1.2: (B, P,
-# R, metric, D); P = 1,500 and D = 1,536 read the rows from device memory
+# R, metric, D); pools past the stage (csrc/vamana_prune.cu: P = 1,500 and
+# 2,048, D = 1,536, some of the P = 224 pools) read the rows from device
+# memory, D = 131 by element loads; P = 33 is one past a panel
 K11_CASES = [
     (1, 160, 64, "euclidean", 128), (7, 224, 64, "euclidean", 128), (512, 160, 64, "euclidean", 128),
     (4096, 224, 64, "euclidean", 128), (7, 128, 32, "dot", 128), (7, 128, 64, "cosine", 128),
     (7, 160, 32, "haversine", 2), (7, 1500, 64, "euclidean", 128), (7, 224, 64, "euclidean", 1536),
+    (9, 33, 32, "euclidean", 128), (7, 2048, 64, "dot", 128), (9, 1500, 64, "euclidean", 131),
 ]
 K11_REPEAT_CASE = 3
 
 
 def _k10_graph(vo, device, b, R, metric, kind, integer, seed):
-    dim = 2 if metric == "haversine" else 128
+    dim = 2 if metric == "haversine" else (37 if kind == "d37" else 128)
     n = 1 if kind == "one" else (100_000 if b >= 512 else 5_000)
-    return vo.random_graph(n, dim, R, integer=integer, metric=metric, seed=seed, device=device,
+    v, a = vo.random_graph(n, dim, R, integer=integer, metric=metric, seed=seed, device=device,
                            nil_rows=0.9 if kind == "nil" else 0.25)
+    if kind == "inf":
+        v[1, 0] = 3e38  # (3e38 - q)^2 overflows: the start node and these rows lie at distance inf
+        v[2::7, 0] = 3e38
+    return v, a
 
 
 def _k10_equal(torch, got, want, what) -> None:
@@ -2362,8 +2394,9 @@ def phase_vamana_kernels(torch, vamana_search, vamana_prune, device) -> dict:
         d[:, :2] = float("inf")
         truth = torch.topk(d, 10, dim=1, largest=False).indices.cpu().numpy()
         real_err = max(real_err, _k10_real_check(torch, v, q, got, want, metric, truth, f"real {metric} B=2048"))
-    log(f"[vamana-kernels] K10 == plain bit for bit at {len(K10_CASES)} integer-valued cases (L 25-512, W 1-8, "
-        f"R 32/64, B 1-8192, seeds, rings, NIL rows, one node, 4 metrics) and {VAMANA_REPEATS} repeats at "
+    log(f"[vamana-kernels] K10 == plain bit for bit at {len(K10_CASES)} integer-valued cases (L 1-512, W 1-8, "
+        f"R 32-129, B 1-8192, seeds, rings, NIL rows, one node, rows at inf, D 37, 4 metrics) and "
+        f"{VAMANA_REPEATS} repeats at "
         f"{len(K10_REPEAT_CASES)} shapes ({calls} calls); real-valued top-10 by the tie rule, max |err| "
         f"{real_err:.3g}")
     k11_calls = 0
@@ -2395,16 +2428,68 @@ def phase_vamana_kernels(torch, vamana_search, vamana_prune, device) -> dict:
     if same < 0.99:
         raise AssertionError(f"K11 on real-valued pools: only {same:.4f} of the rows equal the plain version's")
     log(f"[vamana-kernels] K11 == plain bit for bit at {len(K11_CASES)} integer-valued cases x alpha 1.0, 1.2 "
-        f"(B 1-4096, P 128-1500, R 32/64, 4 metrics, D 2-1536) and {VAMANA_REPEATS} repeats ({k11_calls} calls); "
+        f"(B 1-4096, P 33-2048, R 32/64, 4 metrics, D 2-1536) and {VAMANA_REPEATS} repeats ({k11_calls} calls); "
         f"real-valued pools at B=4096 P=224: {same:.4f} of the rows equal (a near-tie decision may part)")
     return {"k10_err": real_err, "k10_calls": calls, "k11_calls": k11_calls, "k11_real_same": same,
             "k11_unequal": k11_unequal}
 
 
-def phase_vamana_cell(torch, counted, vamana_search, vamana_prune) -> dict:
+def load_vamana_baseline(directory: str) -> tuple:
+    """Build and load another K10 and K11 with the same C interfaces
+    (``vamana_search.cu`` and ``vamana_prune.cu`` in ``directory``, their
+    ``vamana_common.cuh`` beside them; e.g. the parent commit's), both at
+    once, to time beside the tree's; they launch through
+    ``vamana_search.launch`` and ``vamana_prune.launch`` and count nothing.
+    Returns (the K10 library, the K11 library)."""
+    import os
+
+    from semadb_tpu_torch.ops.kernels import vamana_prune, vamana_search
+    from semadb_tpu_torch.utils.build import NVCC_FLAGS, build_library, nvcc
+
+    header = os.path.join(directory, "vamana_common.cuh")
+
+    def one(stem, mod):
+        source = os.path.join(directory, stem + ".cu")
+        path, _ = build_library(stem + "_baseline", source, nvcc(), NVCC_FLAGS, (header,))
+        log(f"[build] {stem} baseline {source}: built into {path}")
+        return mod.bind(path)
+
+    with ThreadPoolExecutor(2) as pool:
+        k10 = pool.submit(one, "vamana_search", vamana_search)
+        k11 = pool.submit(one, "vamana_prune", vamana_prune)
+        return k10.result(), k11.result()
+
+
+def _vamana_turns(torch, tree, base, kernel) -> dict:
+    """Device ms a call of ``tree`` and, where ``base`` is given, of the
+    baseline on the same operands, in turns base, tree, tree, base, so that
+    drift in the card's clock falls on both; each the mean of its windows."""
+    sides = {"": tree, "base_": base}
+    times: dict = {}
+    for tag in ("base_", "", "", "base_") if base is not None else ("",):
+        times.setdefault(tag + "ms", []).append(_device_ms(torch, sides[tag], runs=VAMANA_TIMED_RUNS, kernel=kernel))
+    return {key: float(np.mean(v)) for key, v in times.items()}
+
+
+def _vamana_launch_split(res, launches) -> dict:
+    """K10's and K11's launches in the cell by shape, from the build's own
+    counts: a walk and a prune each insert batch, a prune each overflow
+    round; K10's other launches are query walks, and K11 has none."""
+    split = res["build_split_s"]
+    p1, p2 = split["pass1_batches"], split["pass2_batches"]
+    overflow = split["pass1_overflow_rounds"] + split["pass2_overflow_rounds"]
+    out = {"K10": {"pass1": p1, "pass2": p2, "query": launches["K10"] - p1 - p2},
+           "K11": {"pass1": p1, "pass2": p2, "overflow": overflow}}
+    if out["K10"]["query"] <= 0 or launches["K11"] != p1 + p2 + overflow:
+        raise AssertionError(f"the cell's launches {launches} do not split into its build's {split}")
+    return out
+
+
+def phase_vamana_cell(torch, counted, vamana_search, vamana_prune, baseline=None) -> dict:
     """The Vamana engine cell (bench.py's BENCH_MODE=plain) through
-    annbench.main, then K10 and K11 on the cell's own graph."""
-    from semadb_tpu_torch.index.vamana import build
+    annbench.main, then K10 and K11 on the cell's own graph. With
+    ``baseline`` (:func:`load_vamana_baseline`) those libraries are checked
+    on the same operands and timed beside the tree's kernels."""
     from semadb_tpu_torch.tools import vamana_operands as vo
 
     res, prof, launches, _, keep = _run_annbench(counted, ("--engine", "vamana"), "vamana-cell")
@@ -2412,76 +2497,82 @@ def phase_vamana_cell(torch, counted, vamana_search, vamana_prune) -> dict:
         raise AssertionError(f"Vamana cell recall@10 {res['recall@10']} is below {VAMANA_CELL_RECALL}")
     if launches["K10"] <= 0 or launches["K11"] <= 0:
         raise AssertionError(f"the Vamana cell did not run K10 and K11: {launches}")
-    idx, queries, gt = keep["index"], keep["queries"], keep["ground_truth"]
-    st, cfg = idx.state, idx.config
-    dim, R = cfg.dim, cfg.degree_bound
-    out = {"res": res, "profile": prof, "launches": launches}
-    # K10 at the query shape: the cell's first batch, its seeds
-    b = res["batch"]
-    q = torch.from_numpy(np.ascontiguousarray(queries[:b], np.float32)).to(idx.device)
-    seeds = idx._seeds_for(q)
-    args = (st.vectors, st.adjacency, q, res["search_size"], 2, 0, cfg.metric, seeds, False)
-    got = vamana_search.vamana_beam_search(*args)
+    by_shape = _vamana_launch_split(res, launches)
+    idx, gt = keep["index"], keep["ground_truth"]
+    dim, R = idx.config.dim, idx.config.degree_bound
+    k10_base, k11_base = baseline if baseline is not None else (None, None)
+    out = {"res": res, "profile": prof, "launches": launches, "launches_by_shape": by_shape}
+
+    def base_of(mod, lib, args):
+        return None if lib is None else functools.partial(mod.launch, lib, *args)
+
+    def rows_equal(got, want, what):
+        same = float((got == want).all(1).float().mean())
+        if same < 0.99:
+            raise AssertionError(f"{what}: only {same:.4f} of the rows equal the plain version's")
+        return same
+
+    # K10 at the query walk (the cell's first batch, its entry seeds), at
+    # pass 1's walk and at pass 2's; the baseline at each
+    walks = vo.cell_walks(idx, keep["queries"], res["batch"], res["search_size"])
+    args, shape = walks["query"]
+    b, q = res["batch"], args[2]
     want = vamana_search.beam_search_plain(*args)
-    err = _k10_real_check(torch, st.vectors, q, got, want, cfg.metric, gt[:b] + 2, f"the cell's batch B={b}")
-    k10 = {"max_abs_err": err, **vo.k10_least_bytes(*args), "hops_per_query": float(got.hops.float().mean()),
-           "shape": f"the cell's query walk: B={b}, L={res['search_size']}, W=2, R={R}, D={dim}, "
-                    f"{seeds.shape[1]} entry seeds, no ring"}
-    k10["ms"] = _device_ms(torch, lambda: vamana_search.vamana_beam_search(*args), runs=VAMANA_TIMED_RUNS,
-                           kernel=vamana_search.KERNELS)
-    k10["plain_ms"] = _median_call_ms(torch, lambda: vamana_search.beam_search_plain(*args), runs=3)
+    err = _k10_real_check(torch, idx.state.vectors, q, vamana_search.vamana_beam_search(*args), want,
+                          idx.config.metric, gt[:b] + 2, f"the cell's batch B={b}")
+    if k10_base is not None:
+        _k10_real_check(torch, idx.state.vectors, q, vamana_search.launch(k10_base, *args), want, idx.config.metric,
+                        gt[:b] + 2, f"the K10 baseline on the cell's batch B={b}")
+    k10 = {"max_abs_err": err, **vo.k10_least_bytes(*args), "hops_per_query": float(want.hops.float().mean()),
+           "shape": shape,
+           **_vamana_turns(torch, functools.partial(vamana_search.vamana_beam_search, *args),
+                           base_of(vamana_search, k10_base, args), vamana_search.KERNELS),
+           "plain_ms": _median_call_ms(torch, functools.partial(vamana_search.beam_search_plain, *args), runs=3)}
     k10["bound_ms"] = _bound_ms(k10["bytes"])
-    # K10 at pass 1's shape: 512 of the corpus's own points, L = 75, W = 8, the ring
-    ids = torch.arange(2, 514, device=idx.device)
-    vb = st.vectors[ids].contiguous()
-    bargs = (st.vectors, st.adjacency, vb, cfg.search_size, build.BUILD_W, 0, cfg.metric, None, True)
-    bout = vamana_search.vamana_beam_search(*bargs)
-    k10["build_shape"] = {
-        "shape": f"pass 1's walk: B=512, L={cfg.search_size}, W={build.BUILD_W}, ring, compacted",
-        "ms": _device_ms(torch, lambda: vamana_search.vamana_beam_search(*bargs), runs=VAMANA_TIMED_RUNS,
-                         kernel=vamana_search.KERNELS),
-        **vo.k10_least_bytes(*bargs)}
-    k10["build_shape"]["bound_ms"] = _bound_ms(k10["build_shape"]["bytes"])
-    # K11 at pass 2's shape: 4,096 of the corpus's points, their pools as
-    # the insert makes them (ring, in-batch peers, current out-edges)
-    pids = torch.arange(2, 4098, device=idx.device, dtype=torch.int32)
-    pv = st.vectors[pids.long()].contiguous()
-    pd, pi = build.candidate_pools(st, pids, pv, cfg, cfg.search_size, 8, own_edges=st.adjacency[pids.long()],
-                                   expand_width=build.BUILD_W)
-    pd, pi = pd.contiguous(), pi.to(torch.int32).contiguous()
-    kargs = (pd, pi, pids, st.vectors, R, build.r_stop(cfg), cfg.alpha, cfg.metric)
-    kgot = vamana_prune.vamana_robust_prune(*kargs)
-    kwant = vamana_prune.robust_prune_plain(*kargs)
-    same = float((kgot == kwant).all(1).float().mean())
-    if same < 0.99:
-        raise AssertionError(f"K11 on the cell's pass-2 pools: only {same:.4f} of the rows equal the plain version's")
-    k11 = {"rows_equal": same, **vo.k11_least_bytes(pd, pi, pids, dim, R),
-           "shape": f"pass 2's prune: B=4096, P={pi.shape[1]} (ring + 8 peers + {R} own edges), R={R}, "
-                    f"alpha {cfg.alpha}, the cell's own pools"}
-    k11["ms"] = _device_ms(torch, lambda: vamana_prune.vamana_robust_prune(*kargs), runs=VAMANA_TIMED_RUNS,
-                           kernel=vamana_prune.KERNELS)
-    k11["plain_ms"] = _median_call_ms(torch, lambda: vamana_prune.robust_prune_plain(*kargs), runs=3)
-    k11["bound_ms"] = _bound_ms(k11["bytes"])
-    # K11 at pass 1's shape: 512 pools of the ring and the peers, alpha 1.0
-    qd, qi = build.candidate_pools(st, pids[:512], pv[:512], cfg, cfg.search_size, 8, expand_width=build.BUILD_W)
-    qargs = (qd.contiguous(), qi.to(torch.int32).contiguous(), pids[:512], st.vectors, R, build.r_stop(cfg), 1.0,
-             cfg.metric)
-    k11["build_shape"] = {
-        "shape": f"pass 1's prune: B=512, P={qi.shape[1]}, alpha 1.0",
-        "ms": _device_ms(torch, lambda: vamana_prune.vamana_robust_prune(*qargs), runs=VAMANA_TIMED_RUNS,
-                         kernel=vamana_prune.KERNELS),
-        **vo.k11_least_bytes(*qargs[:3], dim, R)}
-    k11["build_shape"]["bound_ms"] = _bound_ms(k11["build_shape"]["bytes"])
+    for key, name in (("build_shape", "pass1"), ("pass2_shape", "pass2")):
+        wargs, wshape = walks[name]
+        k10[key] = {"shape": wshape,
+                    **_vamana_turns(torch, functools.partial(vamana_search.vamana_beam_search, *wargs),
+                                    base_of(vamana_search, k10_base, wargs),
+                                    vamana_search.KERNELS),
+                    **vo.k10_least_bytes(*wargs)}
+        k10[key]["bound_ms"] = _bound_ms(k10[key]["bytes"])
+    # K11 at pass 2's prune, pass 1's and an overflow round's; the baseline at each
+    pools = vo.cell_pools(idx)
+    k11 = {}
+    for key, name in (("", "pass2"), ("build_shape", "pass1"), ("overflow_shape", "overflow")):
+        pargs, pshape = pools[name]
+        kwant = vamana_prune.robust_prune_plain(*pargs)
+        same = rows_equal(vamana_prune.vamana_robust_prune(*pargs), kwant, f"K11 on the cell's {name} pools")
+        if k11_base is not None:
+            rows_equal(vamana_prune.launch(k11_base, *pargs), kwant, f"the K11 baseline on the cell's {name} pools")
+        one = {"shape": pshape, "rows_equal": same, **vo.k11_least_bytes(*pargs[:3], dim, R),
+               **_vamana_turns(torch, functools.partial(vamana_prune.vamana_robust_prune, *pargs),
+                               base_of(vamana_prune, k11_base, pargs),
+                               vamana_prune.KERNELS)}
+        one["bound_ms"] = _bound_ms(one["bytes"])
+        if key:
+            k11[key] = one
+        else:
+            one["plain_ms"] = _median_call_ms(torch, functools.partial(vamana_prune.robust_prune_plain, *pargs),
+                                              runs=3)
+            k11.update(one)
+    del pools
     out.update(k10=k10, k11=k11)
-    log(f"[vamana-cell] K10 at the cell's query walk {k10['ms']:.4f} ms (plain {k10['plain_ms']:.2f} ms, bound "
-        f"{k10['bound_ms']:.4f} ms for {k10['bytes'] / 1e9:.3f} GB: {k10['distinct_rows_scored']} distinct rows of "
-        f"{k10['rows_scored']} scored, {k10['distinct_nodes_expanded']} of {k10['nodes_expanded']} expanded; "
-        f"{k10['hops_per_query']:.2f} hops a query); "
-        f"at pass 1's walk {k10['build_shape']['ms']:.4f} ms (bound {k10['build_shape']['bound_ms']:.4f}); "
-        f"K11 at pass 2's prune {k11['ms']:.4f} ms (plain {k11['plain_ms']:.2f} ms, bound {k11['bound_ms']:.4f} ms "
-        f"for {k11['distinct_rows']} distinct rows of {k11['live_rows']} live, "
-        f"{same:.4f} of the rows equal), at pass 1's {k11['build_shape']['ms']:.4f} ms "
-        f"(bound {k11['build_shape']['bound_ms']:.4f}); cell launches {launches}")
+
+    def line(t):
+        base = f", baseline {t['base_ms']:.4f} ms ({t['base_ms'] / t['ms']:.2f}x)" if "base_ms" in t else ""
+        return f"{t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, {t['bound_ms'] / t['ms']:.1%}{base})"
+
+    log(f"[vamana-cell] K10 at the cell's query walk {line(k10)}; plain {k10['plain_ms']:.2f} ms; bound for "
+        f"{k10['bytes'] / 1e9:.3f} GB: {k10['distinct_rows_scored']} distinct rows of {k10['rows_scored']} scored, "
+        f"{k10['distinct_nodes_expanded']} of {k10['nodes_expanded']} expanded; {k10['hops_per_query']:.2f} hops a query; at pass 1's walk "
+        f"{line(k10['build_shape'])}; at pass 2's {line(k10['pass2_shape'])}")
+    log(f"[vamana-cell] K11 at pass 2's prune {line(k11)}; plain {k11['plain_ms']:.2f} ms; bound for "
+        f"{k11['distinct_rows']} distinct rows of {k11['live_rows']} live, {k11['rows_equal']:.4f} of the rows "
+        f"equal; at pass 1's {line(k11['build_shape'])}; at an overflow round's ({k11['overflow_shape']['shape']}) "
+        f"{line(k11['overflow_shape'])}, {k11['overflow_shape']['rows_equal']:.4f} of the rows equal")
+    log(f"[vamana-cell] launches by shape {by_shape}; cell launches {launches}")
     del keep
     return out
 
@@ -2612,11 +2703,11 @@ def phase_vamana_http(torch, counted, device, seed: int, n_points: int = HTTP_VA
                                                              "quantizer": {"type": "binary",
                                                                            "binary": {"threshold": 0.0}}}}}})
             except HTTPError as e:
-                refused = e.code == 400 and "slice 13" in e.read().decode()
+                refused = e.code == 400 and "slice 14" in e.read().decode()
             else:
                 refused = False
             if not refused:
-                raise AssertionError("a quantized vectorVamana collection was not refused naming slice 13")
+                raise AssertionError("a quantized vectorVamana collection was not refused naming slice 14")
             chunks = {}
             for name in cols:
                 col = srv.node.get_collection(bq.USER["X-User-Id"], name)
@@ -2633,7 +2724,7 @@ def phase_vamana_http(torch, counted, device, seed: int, n_points: int = HTTP_VA
         f"HTTP) in {ingest_s:.2f} s; 10 single searches of each, a batch of 10 and 10 filtered (v2): recall@10 "
         f"{recall} against numpy, every distance exact, in {search_s:.2f} s; {HTTP_VAMANA_WRITES} deletes and "
         f"{HTTP_VAMANA_WRITES} updates a collection in {writes_s:.2f} s: recall@10 {recall_after}, no deleted id "
-        f"back, 20 updated points find themselves; a quantized vectorVamana refused naming slice 13; the flush "
+        f"back, 20 updated points find themselves; a quantized vectorVamana refused naming slice 14; the flush "
         f"after the writes wrote {chunks} chunks (dirty rows only); after close and reopen every search answers "
         f"the same; launches {launches}")
     if launches["K10"] <= 0 or launches["K11"] <= 0:
@@ -2666,6 +2757,10 @@ def main() -> int:
     parser.add_argument("--k4-baseline", metavar="SOURCE",
                         help="another K4 source (ivf_rerank.cu, its ivf_common.cuh beside it), e.g. the parent "
                              "commit's, timed beside the tree's K4 in phases 8 and 8c")
+    parser.add_argument("--vamana-baseline", metavar="DIR",
+                        help="a directory holding another vamana_search.cu, vamana_prune.cu and vamana_common.cuh "
+                             "(e.g. the parent commit's semadb_tpu_torch/csrc), checked and timed beside the tree's "
+                             "K10 and K11 in phase 15")
     parser.add_argument("--k9-baseline", metavar="SOURCE",
                         help="another K9 source (ivf_pq_scan.cu, with any ivf_common.cuh beside it), e.g. the "
                              "parent commit's, checked and timed beside the tree's K9 in phase 11")
@@ -2697,6 +2792,7 @@ def main() -> int:
     pqerr = _phase("7 K9 against its plain version", phase_pq_kernels, torch, ivf_pq_scan, device)
     baseline = load_k4_baseline(args.k4_baseline) if args.k4_baseline else None
     k9_baseline = load_k9_baseline(args.k9_baseline) if args.k9_baseline else None
+    vamana_baseline = load_vamana_baseline(args.vamana_baseline) if args.vamana_baseline else None
     cell = _phase("8 the IVF cell", phase_ivf_cell, torch, counted, baseline=baseline)
     proj = _phase("8 K4 at the projected shape", phase_k4_projected, torch, ivf_rerank, args.seed, baseline)
     _phase("8b vectorIVF over HTTP", phase_ivf_http, torch, counted, device, args.seed)
@@ -2710,7 +2806,8 @@ def main() -> int:
     http = _phase("13 PQ and fused over HTTP", phase_pq_fused_http, torch, counted, device, args.seed)
     vker = _phase("14 K10 and K11 against their plain versions", phase_vamana_kernels, torch, vamana_search,
                   vamana_prune, device)
-    vcell = _phase("15 the Vamana cell", phase_vamana_cell, torch, counted, vamana_search, vamana_prune)
+    vcell = _phase("15 the Vamana cell", phase_vamana_cell, torch, counted, vamana_search, vamana_prune,
+                   vamana_baseline)
     vhttp = _phase("16 v1 and v2 Vamana collections over HTTP", phase_vamana_http, torch, counted, device, args.seed)
     log(f"[profiler] times reported by CUDA events after every window lost its kernels (P2): "
         f"{len(EVENT_FALLBACKS)} {EVENT_FALLBACKS}")
@@ -2827,7 +2924,9 @@ def main() -> int:
                   + f"; device time per call, mean of {IVF_TIMED_RUNS}"),
         "ivfpq_batch": {key: v for key, v in pqcell["k9_dense"].items() if key != "max_abs_err"},
     }, {
-        "name": "K10 vamana_beam_search (the whole beam-search walk, one block a query)",
+        "name": ("K10 vamana_beam_search (the whole beam-search walk; one warp a query at the query walk, a "
+                 "block of 4-8 warps at the build's; 16-byte row loads, rows in flight; a merge "
+                 "that sorts only the new entries that can enter)"),
         "route": "cuda",
         "source": "semadb_tpu_torch/csrc/vamana_search.cu",
         "replaces": "semadb_tpu/index/vamana/search.py:123",
@@ -2842,18 +2941,23 @@ def main() -> int:
         **{key: vcell["k10"][key] for key in ("distinct_rows_scored", "rows_scored", "distinct_nodes_expanded",
                                               "nodes_expanded")},
         "hops_per_query": vcell["k10"]["hops_per_query"],
-        "build_shape": vcell["k10"]["build_shape"],
+        **{key: vcell["k10"][key] for key in ("build_shape", "pass2_shape") + (("base_ms",) if "base_ms" in
+                                                                                vcell["k10"] else ())},
+        "launches_by_shape": vcell["launches_by_shape"]["K10"],
         "launches_http": vhttp["launches"]["K10"],
         "checked_calls": vker["k10_calls"],
     }, {
-        "name": "K11 vamana_robust_prune (the greedy alpha prune, one block a node)",
+        "name": ("K11 vamana_robust_prune (the greedy alpha prune; a block a node, the live rows staged, panels "
+                 "of 32 live candidates against the later ones by a register-tiled FFMA product, a one-warp greedy "
+                 "over kill masks)"),
         "route": "cuda",
         "source": "semadb_tpu_torch/csrc/vamana_prune.cu",
         "replaces": "semadb_tpu/index/vamana/build.py:97",
         "launches": vcell["launches"]["K11"],
         **{key: vcell["k11"][key] for key in ("ms", "plain_ms", "bound_ms")},
         "bound_by": "bytes",
-        "max_abs_err": max(vker["k11_unequal"], 1.0 - vcell["k11"]["rows_equal"]),
+        "max_abs_err": max(vker["k11_unequal"], *(1.0 - t["rows_equal"] for t in (
+            vcell["k11"], vcell["k11"]["build_shape"], vcell["k11"]["overflow_shape"]))),
         "max_abs_err_is": "K11's outputs are ids: the largest share of adjacency rows unequal to the plain "
                           "version's in any check of this run (integer pools must have none)",
         "library_ms": None,
@@ -2862,7 +2966,9 @@ def main() -> int:
         "bound_bytes": vcell["k11"]["bytes"],
         **{key: vcell["k11"][key] for key in ("distinct_rows", "live_rows")},
         "rows_equal_real": vcell["k11"]["rows_equal"],
-        "build_shape": vcell["k11"]["build_shape"],
+        **{key: vcell["k11"][key] for key in ("build_shape", "overflow_shape") + (("base_ms",) if "base_ms" in
+                                                                                    vcell["k11"] else ())},
+        "launches_by_shape": vcell["launches_by_shape"]["K11"],
         "launches_http": vhttp["launches"]["K11"],
         "checked_calls": vker["k11_calls"],
     }]}))

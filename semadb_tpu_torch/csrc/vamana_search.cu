@@ -48,19 +48,53 @@
 // share many rows, so the kernel, which reads a row for every time it scores
 // it, moves several times that through L2.
 //
-// What the design does about it. This is the first, simple design: one block
-// of 256 threads a query holds the query, the list, the ring and the merge
-// buffer in shared memory for the whole walk, so nothing but the rows it
-// scores and the adjacency rows it reads crosses device memory, and there is
-// one launch for all the hops (the plain version makes some 40 launches a
-// hop). Rows are scored by teams of 8 lanes, each lane reading every 8th
-// element, so each team reads 32-byte sectors and 32 rows are in flight a
-// block. The merge is a bitonic sort of the padded buffer (a power of two,
-// at most 2,048 entries) in shared memory, then the dedup pass and, with
-// compaction, a second sort. Not done yet: rows already in the list are
-// scored again; the list is sorted whole where a merge of two sorted runs
-// would do; blocks do not share rows through shared memory.
-// L <= 512, W * R <= 512, W <= L, L + S <= 2048, D <= 4096.
+// What the design does about it (the second design; the first, one block of
+// 256 threads a query with a bitonic sort of the whole padded buffer each
+// merge, ran at 2.3% of the bound):
+//   1. Geometry by shape. A team of NW warps serves one query and holds its
+//      query, list, survivors and ring in shared memory for the whole walk.
+//      Where a hop brings at most 128 new entries (the query walk: W = 2,
+//      R = 64) a query takes one warp and a block holds kWarpQueries of them,
+//      six blocks an SM (80 registers a thread; more warps with fewer
+//      registers spill and measured slower), so some 3,200 queries walk at
+//      once and a hop's steps are __syncwarp apart; where it brings more (the
+//      build's W = 8) a query takes a block of 4 or 8 warps (8 when the batch
+//      is small, so that the card's few queries have more rows in flight).
+//      pick_geometry below is the rule, the only copy of it; the card tests
+//      (tests/test_torch_cuda.py) launch every shape they check, so a shape
+//      whose block does not fit fails there.
+//   2. Rows in flight. A team of 8 lanes scores a row with 16-byte loads
+//      (at D = 128 a lane loads 4 float4 of it), and each lane issues the
+//      loads of kRowsInFlight rows before its first add. Not reading again a
+//      row already in the list, reusing its incumbent's key, gives the same
+//      holes bit for bit, but the search of the list for each new id cost
+//      more than the reads it saved at every shape measured (PERF.md): it
+//      is left out.
+//   3. A merge that sorts only what can enter. An entry's key is one u64,
+//      (distance's order bits, id + 1, -0.0 flag), holes (inf, -1); -0.0
+//      and 0.0 share the order bits. A new entry can reach the first L only
+//      if its key is below the list's largest key T (a hole counts as
+//      (inf, -1)), since every list entry precedes it otherwise; with
+//      compaction and a real entry at inf in the list every new entry is
+//      kept, as its dups' holes would move ahead of that entry. The
+//      survivors alone are sorted (a bitonic network over the next power of
+//      two, a few dozen once the list is full), and every entry's place
+//      follows from ranks (merge path): a list entry's place is its rank
+//      among the list's real entries plus the survivors below it, a
+//      survivor's its rank plus the list entries at or below it, and holes
+//      form one block at (inf, -1). A survivor equal to its predecessor is a
+//      dup: it becomes a hole in place, or with compaction the entries after
+//      it move up over it and its hole joins the block. Without compaction
+//      (the query walk) nearly every list holds such holes, so its largest
+//      key is (inf, -1) and would keep every finite new entry: there only as
+//      many new entries past the list's largest real key as can take a
+//      hole's place are kept (hole_cut). This is the model
+//      tests/test_torch_vamana_models.py holds equal to merge_sorted
+//      (k10_merge_model).
+// Distances stay f32 (no bf16, no TF32). The order of a row's sum is the
+// team's: each lane sums its own elements, then the 8 lanes' partials.
+// L <= 512, W * R <= 512, W <= L, L + S <= 2048, D <= 4096, ids in
+// [-1, 2^31 - 2].
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,276 +102,750 @@
 
 #include "vamana_common.cuh"
 
-#define kInf __int_as_float(0x7f800000)
 
 namespace {
 
 using namespace vamana;
+using u64 = unsigned long long;
 
 constexpr int kStartId = 1;
-constexpr int kThreads = 256;
-constexpr int kTeam = 8;  // lanes that score one row
-constexpr int kTeams = kThreads / kTeam;
+constexpr int kTeam = 8;           // lanes that score one row
+constexpr int kRowsInFlight = 2;   // rows a lane loads before its first add (1 and 4 measured slower)
+constexpr int kWarpMinBlocks = 6;  // blocks an SM the one-warp geometry takes: 80 registers a thread
+constexpr int kWarpQueries = 4;    // queries a block holds in the one-warp geometry
+constexpr int kWarpMaxNew = 128;   // new entries a hop may bring for one warp a query
+constexpr int kSmallBatch = 1024;  // at or below, a block of 8 warps a query, else 4
 constexpr int kMaxL = 512;
 constexpr int kMaxWR = 512;
 constexpr int kMaxM = 2048;
 constexpr int kMaxD = 4096;
-constexpr int kPadId = 0x7fffffff;  // padding sorts after every real entry
-// (d, id, x) order: distance, then id, then x (bit 1: a new entry, after the
-// list's own; bit 0: expanded). Equal distances, -0.0 and 0.0 among them,
-// fall to the id, as in jax.lax.sort.
-__device__ __forceinline__ bool key_less(float da, int ia, int xa, float db, int ib, int xb) {
-  if (da < db) return true;
-  if (db < da) return false;
-  if (ia != ib) return ia < ib;
-  return xa < xb;
+constexpr long long kSmemBudget = 232448;  // an H100 block's dynamic shared memory
+constexpr u64 kHole = 0xFF80000000000000ull;  // the key of (inf, -1)
+constexpr u64 kPad = ~0ull;                    // sorts after every key
+
+// The key of (d, id): d's order bits (-0.0 as 0.0), then id + 1, then a bit
+// that remembers -0.0, so that equal distances fall to the id as in the
+// stable (d, id) sort and the output keeps d's bits.
+__device__ __forceinline__ u64 key_of(float d, int id) {
+  unsigned u = __float_as_uint(d);
+  const unsigned neg0 = u == 0x80000000u;
+  if (neg0) u = 0u;
+  const unsigned o = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((u64)o << 32) | ((unsigned)(id + 1) << 1) | neg0;
 }
 
-__device__ void bitonic_sort(float* d, int* id, int* x, int m) {
-  for (int k = 2; k <= m; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int t = threadIdx.x; t < (m >> 1); t += kThreads) {
-        const int i = 2 * j * (t / j) + (t % j);
-        const int l = i + j;
-        const bool up = (i & k) == 0;
-        const bool lt = key_less(d[l], id[l], x[l], d[i], id[i], x[i]);
-        const bool gt = key_less(d[i], id[i], x[i], d[l], id[l], x[l]);
-        if (up ? lt : gt) {
-          const float td = d[i]; d[i] = d[l]; d[l] = td;
-          const int ti = id[i]; id[i] = id[l]; id[l] = ti;
-          const int tx = x[i]; x[i] = x[l]; x[l] = tx;
-        }
-      }
-      __syncthreads();
-    }
+__device__ __forceinline__ float dist_of(u64 k) {
+  if (k & 1ull) return -0.0f;
+  const unsigned o = (unsigned)(k >> 32);
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+}
+
+__device__ __forceinline__ int id_of(u64 k) { return (int)((unsigned)k >> 1) - 1; }
+
+__device__ __forceinline__ unsigned lanes_below(int lane) { return (1u << lane) - 1u; }
+
+// The threads that serve one query: NW warps.
+template <int NW>
+struct Team {
+  static constexpr int kThreads = NW * 32;
+  int tid, lane, warp;
+  __device__ __forceinline__ void sync() const {
+    if (NW == 1) __syncwarp();
+    else __syncthreads();
   }
-}
-
-struct Smem {
-  float* q;      // [D]
-  float* ld;     // list [L]
-  int* li;
-  int* le;       // expanded flags
-  float* bd;     // merge buffer [M]
-  int* bi;
-  int* bx;
-  float* vd;     // ring [V]
-  int* vi;
-  int* cur;      // this hop's selected ids [W]
-  int* misc;     // [0] selected count
 };
 
-// Sort buf[0, n) (padded to m), empty every entry whose id repeats its
-// predecessor's, optionally sort again, and take the first L as the list.
-__device__ void merge_into_list(Smem& s, int n, int m, int L, bool compact) {
-  for (int j = n + threadIdx.x; j < m; j += kThreads) {
-    s.bd[j] = kInf; s.bi[j] = kPadId; s.bx[j] = 3;
+// Exclusive prefix of `pred` over the team's threads, in thread order; the
+// count goes to `total` (every thread gets it).
+template <int NW>
+__device__ __forceinline__ int team_scan(bool pred, int* wsum, int& total, const Team<NW>& t) {
+  const unsigned m = __ballot_sync(0xffffffffu, pred);
+  const int pre = __popc(m & lanes_below(t.lane));
+  if (NW == 1) {
+    total = __popc(m);
+    return pre;
   }
+  if (t.lane == 0) wsum[t.warp] = __popc(m);
   __syncthreads();
-  bitonic_sort(s.bd, s.bi, s.bx, m);
-  constexpr int kPer = kMaxM / kThreads;
-  bool dup[kPer];
+  int before = 0, all = 0;
 #pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    const int j = threadIdx.x + k * kThreads;
-    dup[k] = j >= 1 && j < n && s.bi[j] == s.bi[j - 1] && s.bi[j] != kNil;
+  for (int w = 0; w < NW; ++w) {
+    const int c = wsum[w];
+    before += w < t.warp ? c : 0;
+    all += c;
   }
   __syncthreads();
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    const int j = threadIdx.x + k * kThreads;
-    if (dup[k]) { s.bd[j] = kInf; s.bi[j] = kNil; s.bx[j] = 0; }
-  }
-  __syncthreads();
-  if (compact) bitonic_sort(s.bd, s.bi, s.bx, m);
-  for (int p = threadIdx.x; p < L; p += kThreads) {
-    s.ld[p] = s.bd[p]; s.li[p] = s.bi[p]; s.le[p] = s.bx[p] & 1;
-  }
-  __syncthreads();
+  total = all;
+  return before + pre;
 }
 
-// The distance of row `row` to the query, reduced over a team of kTeam lanes
-// (every lane of the warp calls it; `ok` false lanes contribute nothing).
-__device__ __forceinline__ float team_distance(const float* __restrict__ vectors, long long row, int D,
-                                               const float* q, int metric, bool ok, int tl) {
-  float acc = 0.0f;
-  if (metric == kHaversine) {
-    if (ok && tl == 0) {
-      const float* v = vectors + row * D;
-      acc = haversine(q[0], q[1], v[0], v[1]);
-    }
-    return acc;
-  }
-  if (ok) {
-    const float* v = vectors + row * D;
-    if (metric == kEuclidean) {
-#pragma unroll 4
-      for (int d = tl; d < D; d += kTeam) {
-        const float diff = __ldg(v + d) - q[d];
-        acc += diff * diff;
+template <int NW>
+__device__ __forceinline__ u64 team_max(u64 v, u64* wmax, const Team<NW>& t) {
+  const unsigned hi = (unsigned)(v >> 32);
+  const unsigned hm = __reduce_max_sync(0xffffffffu, hi);
+  const unsigned lm = __reduce_max_sync(0xffffffffu, hi == hm ? (unsigned)v : 0u);
+  const u64 r = ((u64)hm << 32) | lm;
+  if (NW == 1) return r;
+  if (t.lane == 0) wmax[t.warp] = r;
+  __syncthreads();
+  u64 all = 0;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) all = wmax[w] > all ? wmax[w] : all;
+  __syncthreads();
+  return all;
+}
+
+template <int NW>
+__device__ __forceinline__ u64 team_min(u64 v, u64* wmin, const Team<NW>& t) {
+  const unsigned hi = (unsigned)(v >> 32);
+  const unsigned hm = __reduce_min_sync(0xffffffffu, hi);
+  const unsigned lm = __reduce_min_sync(0xffffffffu, hi == hm ? (unsigned)v : 0xffffffffu);
+  const u64 r = ((u64)hm << 32) | lm;
+  if (NW == 1) return r;
+  if (t.lane == 0) wmin[t.warp] = r;
+  __syncthreads();
+  u64 all = kPad;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) all = wmin[w] < all ? wmin[w] : all;
+  __syncthreads();
+  return all;
+}
+
+template <int NW>
+__device__ __forceinline__ int team_add(int v, int* wsum, const Team<NW>& t) {
+  v = __reduce_add_sync(0xffffffffu, v);
+  if (NW == 1) return v;
+  if (t.lane == 0) wsum[t.warp] = v;
+  __syncthreads();
+  int all = 0;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) all += wsum[w];
+  __syncthreads();
+  return all;
+}
+
+// Bitonic sort of a[0, n) ascending, n a power of two (padding kPad);
+// a[] must be visible to the team when it is called; ends with a sync.
+template <int NW>
+__device__ void team_sort(u64* a, int n, const Team<NW>& t) {
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const int sh = __ffs(j) - 1;
+      for (int s = t.tid; s < (n >> 1); s += Team<NW>::kThreads) {
+        const int i = ((s >> sh) << (sh + 1)) + (s & (j - 1));
+        const int l = i + j;
+        const u64 x = a[i], y = a[l];
+        if ((x > y) == ((i & k) == 0)) {
+          a[i] = y;
+          a[l] = x;
+        }
       }
-    } else {
-#pragma unroll 4
-      for (int d = tl; d < D; d += kTeam) acc += __ldg(v + d) * q[d];
+      t.sync();
     }
   }
+}
+
+__device__ __forceinline__ int count_below(const u64* a, int n, u64 x) {  // # a[i] < x
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < x) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ int count_at_or_below(const u64* a, int n, u64 x) {  // # a[i] <= x
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] <= x) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// ---- Scoring: one device function a metric. A team of kTeam lanes scores
+// U rows at once; lane tl sums its elements, the team adds the partials.
+// Rows with ok false contribute nothing and load nothing.
+
+__device__ __forceinline__ float team_sum(float acc) {
 #pragma unroll
   for (int off = kTeam / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off, kTeam);
-  if (metric == kDot) return -acc;
-  if (metric == kCosine) return 1.0f - acc;
   return acc;
 }
 
-// Score candidates into buf[L + s] for s < n_slots: slot s is the neighbour
-// (or seed) id ids_of(s); non-valid slots become (inf, -1).
-template <typename IdOf>
-__device__ void score_slots(Smem& s, const float* __restrict__ vectors, long long cap, int D, int metric,
-                            int L, int n_slots, IdOf ids_of, int* scored) {
-  const int team = threadIdx.x / kTeam, tl = threadIdx.x % kTeam;
-  int count = 0;
-  for (int base = 0; base < n_slots; base += kTeams) {
-    const int slot = base + team;
-    int id = kNil;
-    bool ok = false;
-    if (slot < n_slots) {
-      id = ids_of(slot);
-      ok = id != kNil;
+// sum (v - q)^2 (EUCLID) or sum v q over the row, partials of lane tl.
+template <int U, bool VEC, bool EUCLID>
+__device__ __forceinline__ void team_rows(const float* __restrict__ vectors, int D, const float* q,
+                                          const long long (&row)[U], const bool (&ok)[U], int tl, float (&acc)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) acc[u] = 0.0f;
+  if (VEC) {
+    const int D4 = D >> 2;
+    const float4* q4 = reinterpret_cast<const float4*>(q);
+    for (int c0 = 0; c0 < D4; c0 += 4 * kTeam) {
+      float4 v[U][4];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float4* r4 = reinterpret_cast<const float4*>(vectors + row[u] * D);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int c = c0 + tl + k * kTeam;
+          v[u][k] = (ok[u] && c < D4) ? __ldg(r4 + c) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int c = c0 + tl + k * kTeam;
+        if (c < D4) {
+          const float4 qq = q4[c];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (EUCLID) {
+              const float a = v[u][k].x - qq.x, b = v[u][k].y - qq.y;
+              const float e = v[u][k].z - qq.z, f = v[u][k].w - qq.w;
+              acc[u] = fmaf(a, a, acc[u]);
+              acc[u] = fmaf(b, b, acc[u]);
+              acc[u] = fmaf(e, e, acc[u]);
+              acc[u] = fmaf(f, f, acc[u]);
+            } else {
+              acc[u] = fmaf(v[u][k].x, qq.x, acc[u]);
+              acc[u] = fmaf(v[u][k].y, qq.y, acc[u]);
+              acc[u] = fmaf(v[u][k].z, qq.z, acc[u]);
+              acc[u] = fmaf(v[u][k].w, qq.w, acc[u]);
+            }
+          }
+        }
+      }
     }
-    long long row = id < 0 ? 0 : (id >= cap ? cap - 1 : id);
-    const float dist = team_distance(vectors, row, D, s.q, metric, ok, tl);
-    if (slot < n_slots && tl == 0) {
-      s.bd[L + slot] = ok ? dist : kInf;
-      s.bi[L + slot] = ok ? id : kNil;
-      s.bx[L + slot] = 2;
-      count += ok;
+  } else {
+    for (int d0 = 0; d0 < D; d0 += 4 * kTeam) {
+      float v[U][4];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int d = d0 + tl + k * kTeam;
+          v[u][k] = (ok[u] && d < D) ? __ldg(vectors + row[u] * D + d) : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int d = d0 + tl + k * kTeam;
+        if (d < D) {
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (EUCLID) {
+              const float a = v[u][k] - q[d];
+              acc[u] = fmaf(a, a, acc[u]);
+            } else {
+              acc[u] = fmaf(v[u][k], q[d], acc[u]);
+            }
+          }
+        }
+      }
     }
   }
-  if (tl == 0 && count) atomicAdd(scored, count);
+#pragma unroll
+  for (int u = 0; u < U; ++u) acc[u] = team_sum(acc[u]);
 }
 
-__global__ void __launch_bounds__(kThreads) vamana_beam_search_kernel(
+template <int U, bool VEC>
+__device__ __forceinline__ void score_euclidean(const float* __restrict__ vectors, int D, const float* q,
+                                                const long long (&row)[U], const bool (&ok)[U], int tl,
+                                                float (&dist)[U]) {
+  team_rows<U, VEC, true>(vectors, D, q, row, ok, tl, dist);
+}
+
+template <int U, bool VEC>
+__device__ __forceinline__ void score_inner(const float* __restrict__ vectors, int D, const float* q,
+                                            const long long (&row)[U], const bool (&ok)[U], int tl, bool cosine,
+                                            float (&dist)[U]) {
+  team_rows<U, VEC, false>(vectors, D, q, row, ok, tl, dist);
+#pragma unroll
+  for (int u = 0; u < U; ++u) dist[u] = cosine ? 1.0f - dist[u] : -dist[u];
+}
+
+template <int U>
+__device__ __forceinline__ void score_haversine(const float* __restrict__ vectors, const float* q,
+                                                const long long (&row)[U], const bool (&ok)[U], int tl,
+                                                float (&dist)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    float d = 0.0f;
+    if (ok[u] && tl == 0) {
+      const float* v = vectors + row[u] * 2;
+      d = haversine(q[0], q[1], __ldg(v), __ldg(v + 1));
+    }
+    dist[u] = d;
+  }
+}
+
+template <int U, bool VEC>
+__device__ __forceinline__ void score_rows(int metric, const float* __restrict__ vectors, int D, const float* q,
+                                           const long long (&row)[U], const bool (&ok)[U], int tl,
+                                           float (&dist)[U]) {
+  if (metric == kEuclidean) score_euclidean<U, VEC>(vectors, D, q, row, ok, tl, dist);
+  else if (metric == kHaversine) score_haversine<U>(vectors, q, row, ok, tl, dist);
+  else score_inner<U, VEC>(vectors, D, q, row, ok, tl, metric == kCosine, dist);
+}
+
+// ---- One query's shared memory
+
+struct Layout {
+  int q, lk0, lk1, nk, le0, le1, nke, sv, dp, ring, cur, pos, wsum, misc, bytes;
+};
+
+__host__ __device__ inline int pow2_at_least(int n) {
+  int m = 1;
+  while (m < n) m <<= 1;
+  return m;
+}
+
+__host__ __device__ inline int take(int& off, int bytes) {
+  const int at = off;
+  off += (bytes + 15) & ~15;
+  return at;
+}
+
+// Byte offsets of one query's arrays (every one 16-byte aligned), and their sum.
+__host__ __device__ inline Layout layout_of(int D, int L, int W, int R, int S, int track) {
+  Layout y;
+  int off = 0;
+  const int V = ((2 * L + W - 1) / W) * W;
+  const int cap = pow2_at_least(W * R > S ? W * R : S);
+  y.q = take(off, 4 * ((D + 3) & ~3));
+  y.lk0 = take(off, 8 * L);
+  y.lk1 = take(off, 8 * L);
+  y.nk = take(off, 8 * L);
+  y.le0 = take(off, L);
+  y.le1 = take(off, L);
+  y.nke = take(off, L);
+  y.sv = take(off, 8 * cap);
+  y.dp = take(off, 4 * (cap + 1));
+  y.ring = take(off, track ? 8 * pow2_at_least(V) : 0);
+  y.cur = take(off, 4 * W);
+  y.pos = take(off, 4 * W);
+  y.wsum = take(off, 8 * 8);
+  y.misc = take(off, 4 * 8);
+  y.bytes = off;
+  return y;
+}
+
+enum Misc { kSurvivors = 0, kNonHole = 1, kSel = 2 };
+
+struct State {
+  float* q;
+  u64* lk;  // the list's keys, in its order
+  u64* lk_next;  // the next list, written by a merge; then the two swap
+  unsigned char* le;  // expanded flags
+  unsigned char* le_next;
+  u64* nk;
+  unsigned char* nke;
+  u64* sv;
+  int* dp;
+  u64* ring;
+  int* cur;
+  int* pos;
+  int* wsum;
+  int* misc;
+};
+
+// Merge the `ns` survivors sv[0, ns) (real entries, unsorted) and `hnew`
+// surviving new holes into the list; see the header's point 3.
+template <int NW>
+__device__ void merge(State& s, int L, int ns, int hnew, bool compact, const Team<NW>& t) {
+  constexpr int T = Team<NW>::kThreads;
+  const u64* lk = s.lk;
+  const unsigned char* le = s.le;
+  u64* out = s.lk_next;
+  unsigned char* oute = s.le_next;
+  const int np = pow2_at_least(ns);
+  for (int j = ns + t.tid; j < np; j += T) s.sv[j] = kPad;
+  t.sync();
+  if (np > 1) team_sort(s.sv, np, t);
+  // The list's real entries (in order, as they are sorted) and their flags
+  int F = 0;
+  for (int base = 0; base < L; base += T) {
+    const int p = base + t.tid;
+    const u64 k = p < L ? lk[p] : kHole;
+    const bool real = p < L && k != kHole;
+    int tot;
+    const int pre = team_scan(real, s.wsum, tot, t);
+    if (real) {
+      s.nk[F + pre] = k;
+      s.nke[F + pre] = le[p];
+    }
+    F += tot;
+  }
+  t.sync();
+  // Survivors equal to their predecessor (a survivor or a list entry) are
+  // dups; dp[j] counts those before j
+  int ndup = 0;
+  for (int base = 0; base < ns; base += T) {
+    const int j = base + t.tid;
+    bool dup = false;
+    if (j < ns) {
+      const u64 x = s.sv[j];
+      const int c = count_at_or_below(s.nk, F, x);
+      dup = (j > 0 && s.sv[j - 1] == x) || (c > 0 && s.nk[c - 1] == x);
+    }
+    int tot;
+    const int pre = team_scan(dup, s.wsum, tot, t);
+    if (j < ns) s.dp[j] = ndup + pre;
+    ndup += tot;
+  }
+  if (t.tid == 0) s.dp[ns] = ndup;
+  t.sync();
+  const int holes = (L - F) + hnew;
+  for (int j = t.tid; j < ns; j += T) {
+    const u64 x = s.sv[j];
+    const bool dup = s.dp[j + 1] != s.dp[j];
+    const bool past = x > kHole;  // a real entry at inf: after the holes
+    int p = j + count_at_or_below(s.nk, F, x) + (past ? holes : 0);
+    if (compact) {
+      if (dup) continue;
+      p += past ? ndup - s.dp[j] : -s.dp[j];
+    }
+    if (p < L) {
+      out[p] = dup ? kHole : x;
+      oute[p] = 0;
+    }
+  }
+  for (int i = t.tid; i < F; i += T) {
+    const u64 k = s.nk[i];
+    const bool past = k > kHole;
+    const int c = count_below(s.sv, ns, k);
+    int p = i + c + (past ? holes : 0);
+    if (compact) p += past ? ndup - s.dp[c] : -s.dp[c];
+    if (p < L) {
+      out[p] = k;
+      oute[p] = s.nke[i];
+    }
+  }
+  {
+    const int c = count_below(s.sv, ns, kHole);
+    int start = count_below(s.nk, F, kHole) + c, len = holes;
+    if (compact) {
+      start -= s.dp[c];
+      len += ndup;
+    }
+    const int end = start + len < L ? start + len : L;
+    for (int p = start + t.tid; p < end; p += T) {
+      out[p] = kHole;
+      oute[p] = 0;
+    }
+  }
+  t.sync();
+  s.lk_next = s.lk;
+  s.lk = out;
+  s.le_next = s.le;
+  s.le = oute;
+}
+
+// The list's largest key, and the survivors' bound: with compaction and a
+// real entry at inf in the list, every new entry survives.
+template <int NW>
+__device__ __forceinline__ u64 survivor_bound(const State& s, int L, bool compact, const Team<NW>& t) {
+  u64 m = 0;
+  for (int p = t.tid; p < L; p += Team<NW>::kThreads) m = s.lk[p] > m ? s.lk[p] : m;
+  const u64 top = team_max(m, reinterpret_cast<u64*>(s.wsum), t);
+  return (compact && top > kHole) ? kPad : top;
+}
+
+// An uncompacted merge whose list holds holes and no real entry past them
+// (its largest key is a hole) keeps its holes in place: a new entry past the
+// list's largest real key can only take a hole's place, so of those only the
+// (holes - a) smallest can enter (a: the survivors below that key). Keeps
+// those survivors and the ones below, in place in sv; returns their count.
+// (hole_cut in tests/test_torch_vamana_models.py.)
+template <int NW>
+__device__ int hole_cut(State& s, int L, int ns, const Team<NW>& t) {
+  constexpr int T = Team<NW>::kThreads;
+  u64* w64 = reinterpret_cast<u64*>(s.wsum);
+  u64 top = 0;
+  int holes = 0;
+  for (int p = t.tid; p < L; p += T) {
+    const u64 k = s.lk[p];
+    if (k == kHole) ++holes;
+    else top = k > top ? k : top;
+  }
+  top = team_max(top, w64, t);
+  holes = team_add(holes, s.wsum, t);
+  int below = 0;
+  for (int j = t.tid; j < ns; j += T) below += s.sv[j] < top;
+  const int need = holes - team_add(below, s.wsum, t);
+  u64 cut = top;
+  if (need > 0) {
+    // The need-th smallest key at or past top, counting repeats
+    cut = kPad;
+    u64 prev = 0;
+    bool first = true;
+    for (int taken = 0;;) {
+      u64 m = kPad;
+      for (int j = t.tid; j < ns; j += T) {
+        const u64 k = s.sv[j];
+        if (k >= top && (first || k > prev) && k < m) m = k;
+      }
+      m = team_min(m, w64, t);
+      if (m == kPad) break;
+      int eq = 0;
+      for (int j = t.tid; j < ns; j += T) eq += s.sv[j] == m;
+      taken += team_add(eq, s.wsum, t);
+      if (taken >= need) {
+        cut = m + 1;
+        break;
+      }
+      prev = m;
+      first = false;
+    }
+  }
+  int kept = 0;
+  for (int base = 0; base < ns; base += T) {
+    const int j = base + t.tid;
+    const u64 k = j < ns ? s.sv[j] : kPad;
+    const bool keep = j < ns && k < cut;
+    t.sync();  // every read of this round before any write
+    int tot;
+    const int pre = team_scan(keep, s.wsum, tot, t);
+    if (keep) s.sv[kept + pre] = k;
+    kept += tot;
+  }
+  t.sync();
+  return kept;
+}
+
+// Score slots [0, n_slots) (slot -> id by ids_of; NIL slots are holes) and
+// keep the survivors (key < bound) in sv; counts real slots in misc.
+template <int NW, bool VEC, typename IdOf>
+__device__ void score_slots(State& s, const float* __restrict__ vectors, long long cap, int D, int metric,
+                            int n_slots, u64 bound, IdOf ids_of, const Team<NW>& t) {
+  constexpr int U = kRowsInFlight;
+  constexpr int RT = Team<NW>::kThreads / kTeam;
+  const int g = t.tid / kTeam, tl = t.tid % kTeam;
+  int real = 0;
+  for (int base = 0; base < n_slots; base += RT * U) {
+    int id[U];
+    bool ok[U];
+    long long row[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int slot = base + u * RT + g;
+      id[u] = slot < n_slots ? ids_of(slot) : kNil;
+      ok[u] = id[u] != kNil;
+      row[u] = id[u] < 0 ? 0 : (id[u] >= cap ? cap - 1 : id[u]);
+    }
+    float dist[U];
+    score_rows<U, VEC>(metric, vectors, D, s.q, row, ok, tl, dist);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const u64 key = key_of(dist[u], id[u]);
+      const bool keep = tl == 0 && ok[u] && key < bound;
+      real += tl == 0 && ok[u];
+      const unsigned m = __ballot_sync(0xffffffffu, keep);
+      if (m) {
+        const int first = __ffs(m) - 1;
+        int at = 0;
+        if (t.lane == first) at = atomicAdd(&s.misc[kSurvivors], __popc(m));
+        at = __shfl_sync(0xffffffffu, at, first);
+        if (keep) s.sv[at + __popc(m & lanes_below(t.lane))] = key;
+      }
+    }
+  }
+  real = __reduce_add_sync(0xffffffffu, real);
+  if (t.lane == 0 && real) atomicAdd(&s.misc[kNonHole], real);
+}
+
+template <int NW>
+constexpr int block_threads() {
+  return NW == 1 ? kWarpQueries * 32 : NW * 32;
+}
+
+template <int NW>
+constexpr int min_blocks() {
+  return NW == 1 ? kWarpMinBlocks : (NW == 4 ? 8 : 4);  // 64 registers a thread at 8 and 4
+}
+
+template <int NW, bool VEC>
+__global__ void __launch_bounds__(block_threads<NW>(), min_blocks<NW>()) vamana_beam_search_kernel(
     const float* __restrict__ vectors, long long cap, int D, const int32_t* __restrict__ adjacency, int R,
-    const float* __restrict__ queries, const int32_t* __restrict__ seeds, int S, int L, int W, int V, int M,
-    int max_hops, int metric, int track_visited, float* __restrict__ cand_d,
+    const float* __restrict__ queries, int B, const int32_t* __restrict__ seeds, int S, int L, int W, int V,
+    int max_hops, int metric, int track_visited, int team_bytes, float* __restrict__ cand_d,
     int32_t* __restrict__ cand_i, float* __restrict__ vis_d, int32_t* __restrict__ vis_i,
     int32_t* __restrict__ hops_out, int32_t* __restrict__ counts_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem s;
-  {
-    unsigned char* p = smem_raw;
-    auto take = [&](size_t bytes) { unsigned char* r = p; p += (bytes + 15) & ~size_t(15); return r; };
-    s.q = reinterpret_cast<float*>(take(sizeof(float) * D));
-    s.ld = reinterpret_cast<float*>(take(sizeof(float) * L));
-    s.li = reinterpret_cast<int*>(take(sizeof(int) * L));
-    s.le = reinterpret_cast<int*>(take(sizeof(int) * L));
-    s.bd = reinterpret_cast<float*>(take(sizeof(float) * M));
-    s.bi = reinterpret_cast<int*>(take(sizeof(int) * M));
-    s.bx = reinterpret_cast<int*>(take(sizeof(int) * M));
-    s.vd = reinterpret_cast<float*>(take(sizeof(float) * V));
-    s.vi = reinterpret_cast<int*>(take(sizeof(int) * V));
-    s.cur = reinterpret_cast<int*>(take(sizeof(int) * W));
-    s.misc = reinterpret_cast<int*>(take(sizeof(int) * 4));
-  }
-  const int b = blockIdx.x;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  constexpr int T = Team<NW>::kThreads;
+  Team<NW> t;
+  t.tid = threadIdx.x % T;
+  t.lane = threadIdx.x % 32;
+  t.warp = t.tid / 32;
+  const int b = blockIdx.x * (blockDim.x / T) + threadIdx.x / T;
+  if (b >= B) return;  // a whole team (a warp: NW == 1 only has teams past B)
+  const bool track = track_visited != 0;
+  const Layout y = layout_of(D, L, W, R, S, track_visited);
+  unsigned char* base = smem_raw + (long long)(threadIdx.x / T) * team_bytes;
+  State s;
+  s.q = reinterpret_cast<float*>(base + y.q);
+  s.lk = reinterpret_cast<u64*>(base + y.lk0);
+  s.lk_next = reinterpret_cast<u64*>(base + y.lk1);
+  s.nk = reinterpret_cast<u64*>(base + y.nk);
+  s.le = base + y.le0;
+  s.le_next = base + y.le1;
+  s.nke = base + y.nke;
+  s.sv = reinterpret_cast<u64*>(base + y.sv);
+  s.dp = reinterpret_cast<int*>(base + y.dp);
+  s.ring = reinterpret_cast<u64*>(base + y.ring);
+  s.cur = reinterpret_cast<int*>(base + y.cur);
+  s.pos = reinterpret_cast<int*>(base + y.pos);
+  s.wsum = reinterpret_cast<int*>(base + y.wsum);
+  s.misc = reinterpret_cast<int*>(base + y.misc);
+  const int Vp = pow2_at_least(V);
   const float* qg = queries + (long long)b * D;
-  for (int d = threadIdx.x; d < D; d += kThreads) s.q[d] = qg[d];
-  for (int p = threadIdx.x; p < L; p += kThreads) { s.ld[p] = kInf; s.li[p] = kNil; s.le[p] = 0; }
-  for (int p = threadIdx.x; p < V; p += kThreads) { s.vd[p] = kInf; s.vi[p] = kNil; }
-  if (threadIdx.x < 4) s.misc[threadIdx.x] = 0;
-  __syncthreads();
-  // The start node: team 0 scores it (every lane of warp 0 takes part)
-  if (warp == 0) {
-    const long long row = kStartId < cap ? kStartId : cap - 1;
-    const float dist = team_distance(vectors, row, D, s.q, metric, lane < kTeam, lane % kTeam);
-    if (lane == 0) { s.ld[0] = dist; s.li[0] = kStartId; }
+  const int Dp = (D + 3) & ~3;
+  for (int d = t.tid; d < Dp; d += T) s.q[d] = d < D ? qg[d] : 0.0f;
+  for (int p = t.tid; p < L; p += T) {
+    s.lk[p] = kHole;
+    s.le[p] = 0;
   }
-  __syncthreads();
+  if (track)
+    for (int p = t.tid; p < Vp; p += T) s.ring[p] = p < V ? kHole : kPad;
+  if (t.tid < 8) s.misc[t.tid] = 0;
+  t.sync();
+  // The start node: the first 8 lanes score it (the whole first warp calls)
+  if (t.warp == 0) {
+    const long long row[1] = {kStartId < cap ? kStartId : cap - 1};
+    const bool ok[1] = {t.lane < kTeam};
+    float dist[1];
+    score_rows<1, VEC>(metric, vectors, D, s.q, row, ok, t.lane % kTeam, dist);
+    if (t.lane == 0) s.lk[0] = key_of(dist[0], kStartId);
+  }
+  t.sync();
+  int scored = 0;
   if (seeds != nullptr && S > 0) {
     const int32_t* sg = seeds + (long long)b * S;
-    for (int p = threadIdx.x; p < L; p += kThreads) { s.bd[p] = s.ld[p]; s.bi[p] = s.li[p]; s.bx[p] = s.le[p]; }
-    score_slots(s, vectors, cap, D, metric, L, S,
-                [&](int slot) { const int id = sg[slot]; return id == kStartId ? kNil : id; }, &s.misc[2]);
-    __syncthreads();
-    merge_into_list(s, L + S, M, L, true);
+    const u64 bound = survivor_bound(s, L, true, t);
+    score_slots<NW, VEC>(s, vectors, cap, D, metric, S, bound,
+                         [&](int slot) { const int id = sg[slot]; return id == kStartId ? kNil : id; }, t);
+    t.sync();
+    const int ns = s.misc[kSurvivors], real = s.misc[kNonHole];
+    scored += real;
+    t.sync();
+    if (t.tid == 0) s.misc[kSurvivors] = s.misc[kNonHole] = 0;
+    merge(s, L, ns, bound > kHole ? S - real : 0, true, t);
   }
   const int ring_blocks = V / W;
-  int hop = 0;
-  int expanded = 0;
+  int hop = 0, expanded = 0;
   while (hop < max_hops) {
-    // The W earliest unexpanded positions (warp 0, a ballot per 32 slots)
-    if (warp == 0) {
-      int found = 0;
-      for (int base = 0; base < L && found < W; base += 32) {
-        const int p = base + lane;
-        const bool u = p < L && s.li[p] != kNil && !s.le[p] && isfinite(s.ld[p]);
-        const unsigned m = __ballot_sync(0xffffffffu, u);
-        const int r = found + __popc(m & ((1u << lane) - 1u));
-        if (u && r < W) {
-          s.cur[r] = p;  // a position for now
-        }
-        found += __popc(m);
+    // The W earliest unexpanded positions
+    int found = 0;
+    for (int base = 0; base < L && found < W; base += T) {
+      const int p = base + t.tid;
+      bool u = false;
+      if (p < L) {
+        const u64 k = s.lk[p];
+        u = id_of(k) != kNil && !s.le[p] && isfinite(dist_of(k));
       }
-      if (lane == 0) s.misc[0] = found < W ? found : W;
+      int tot;
+      const int pre = team_scan(u, s.wsum, tot, t);
+      if (u && found + pre < W) s.pos[found + pre] = p;
+      found += tot;
     }
-    __syncthreads();
-    const int nsel = s.misc[0];
+    const int nsel = found < W ? found : W;
     if (nsel == 0) break;
-    for (int w = threadIdx.x; w < nsel; w += kThreads) {
-      const int p = s.cur[w];
-      const int id = s.li[p];
+    t.sync();
+    for (int w = t.tid; w < nsel; w += T) {
+      const int p = s.pos[w];
+      const u64 k = s.lk[p];
       s.le[p] = 1;
-      if (track_visited) {
-        const int slot = (hop % ring_blocks) * W + w;
-        s.vd[slot] = s.ld[p];
-        s.vi[slot] = id;
-      }
-      s.cur[w] = id;
+      if (track) s.ring[(hop % ring_blocks) * W + w] = k;
+      s.cur[w] = id_of(k);
     }
-    __syncthreads();
+    t.sync();
     expanded += nsel;
-    for (int p = threadIdx.x; p < L; p += kThreads) { s.bd[p] = s.ld[p]; s.bi[p] = s.li[p]; s.bx[p] = s.le[p]; }
-    const int n_live = nsel * R;
-    score_slots(s, vectors, cap, D, metric, L, n_live,
-                [&](int slot) {
-                  const int c = s.cur[slot / R];
-                  const long long row = c < 0 ? 0 : (c >= cap ? cap - 1 : c);
-                  return (int)__ldg(adjacency + row * R + slot % R);
-                },
-                &s.misc[2]);
-    for (int j = L + n_live + threadIdx.x; j < L + W * R; j += kThreads) {
-      s.bd[j] = kInf; s.bi[j] = kNil; s.bx[j] = 2;
-    }
-    __syncthreads();
-    merge_into_list(s, L + W * R, M, L, track_visited != 0);
+    const u64 bound = survivor_bound(s, L, track, t);
+    const float inv_r = 1.0f / R;  // slot / R exactly: slot + 0.5 lies 0.5 / R from a multiple of R
+    score_slots<NW, VEC>(s, vectors, cap, D, metric, nsel * R, bound,
+                         [&](int slot) {
+                           const int w = __float2int_rz((slot + 0.5f) * inv_r);
+                           const int c = s.cur[w];
+                           const long long row = c < 0 ? 0 : (c >= cap ? cap - 1 : c);
+                           return (int)__ldg(adjacency + row * R + (slot - w * R));
+                         },
+                         t);
+    t.sync();
+    int ns = s.misc[kSurvivors];
+    const int real = s.misc[kNonHole];
+    scored += real;
+    t.sync();
+    if (t.tid == 0) s.misc[kSurvivors] = s.misc[kNonHole] = 0;
+    if (!track && bound == kHole && ns > 0) ns = hole_cut(s, L, ns, t);
+    merge(s, L, ns, bound > kHole ? W * R - real : 0, track, t);
     ++hop;
   }
   float* cd = cand_d + (long long)b * L;
   int32_t* ci = cand_i + (long long)b * L;
-  for (int p = threadIdx.x; p < L; p += kThreads) { cd[p] = s.ld[p]; ci[p] = s.li[p]; }
-  // The ring, sorted by (d, id)
-  int mv = 1;
-  while (mv < V) mv <<= 1;
-  for (int p = threadIdx.x; p < mv; p += kThreads) {
-    if (p < V) { s.bd[p] = s.vd[p]; s.bi[p] = s.vi[p]; s.bx[p] = 0; }
-    else { s.bd[p] = kInf; s.bi[p] = kPadId; s.bx[p] = 3; }
+  for (int p = t.tid; p < L; p += T) {
+    const u64 k = s.lk[p];
+    cd[p] = dist_of(k);
+    ci[p] = id_of(k);
   }
-  __syncthreads();
-  bitonic_sort(s.bd, s.bi, s.bx, mv);
   float* vdo = vis_d + (long long)b * V;
   int32_t* vio = vis_i + (long long)b * V;
-  for (int p = threadIdx.x; p < V; p += kThreads) { vdo[p] = s.bd[p]; vio[p] = s.bi[p]; }
-  if (threadIdx.x == 0) {
+  if (track) {
+    team_sort(s.ring, Vp, t);
+    for (int p = t.tid; p < V; p += T) {
+      vdo[p] = dist_of(s.ring[p]);
+      vio[p] = id_of(s.ring[p]);
+    }
+  } else {
+    for (int p = t.tid; p < V; p += T) {
+      vdo[p] = __int_as_float(0x7f800000);
+      vio[p] = kNil;
+    }
+  }
+  if (t.tid == 0) {
     hops_out[b] = hop;
     counts_out[2 * b] = expanded;
-    counts_out[2 * b + 1] = s.misc[2];
+    counts_out[2 * b + 1] = scored;
   }
 }
 
-// Bytes of dynamic shared memory one block takes at these sizes.
-long long smem_bytes(int D, int L, int W, int V, int M) {
-  auto r = [](long long b) { return (b + 15) & ~15LL; };
-  return r(4LL * D) + 3 * r(4LL * L) + 3 * r(4LL * M) + 2 * r(4LL * V) + r(4LL * W) + r(16);
+struct Geometry {
+  int nw, qpb, team_bytes;
+};
+
+// Warps a query and queries a block: one warp a query where a hop brings at most kWarpMaxNew new
+// entries (seeds included), kWarpQueries a block as far as shared memory
+// allows; else a block a query, of 8 warps for a batch of at most
+// kSmallBatch queries and 4 for a larger one.
+Geometry pick_geometry(int B, int L, int W, int R, int D, int S, int track) {
+  Geometry g;
+  const int most_new = W * R > S ? W * R : S;
+  g.nw = most_new <= kWarpMaxNew ? 1 : (B <= kSmallBatch ? 8 : 4);
+  g.team_bytes = layout_of(D, L, W, R, S, track).bytes;
+  g.qpb = 1;
+  if (g.nw == 1) {
+    const long long fit = kSmemBudget / g.team_bytes;
+    g.qpb = fit < kWarpQueries ? (fit < 1 ? 1 : (int)fit) : kWarpQueries;
+  }
+  return g;
+}
+
+template <int NW, bool VEC>
+cudaError_t launch_as(const Geometry& g, const float* vectors, long long cap, int D, const int32_t* adjacency, int R,
+                      const float* queries, int B, const int32_t* seeds, int S, int L, int W, int V, int max_hops,
+                      int metric, int track, float* cand_d, int32_t* cand_i, float* vis_d, int32_t* vis_i,
+                      int32_t* hops, int32_t* counts, cudaStream_t stream) {
+  const int smem = g.team_bytes * g.qpb;
+  cudaError_t err = cudaFuncSetAttribute(vamana_beam_search_kernel<NW, VEC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (B + g.qpb - 1) / g.qpb;
+  vamana_beam_search_kernel<NW, VEC><<<blocks, g.qpb * NW * 32, smem, stream>>>(
+      vectors, cap, D, adjacency, R, queries, B, seeds, S, L, W, V, max_hops, metric, track, g.team_bytes, cand_d,
+      cand_i, vis_d, vis_i, hops, counts);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -345,30 +853,43 @@ long long smem_bytes(int D, int L, int W, int V, int M) {
 extern "C" {
 
 // Pointers are device pointers; seeds may be null (S = 0). metric: 0
-// euclidean, 1 dot, 2 cosine, 3 haversine. M is the merge buffer's length, a
-// power of two >= max(L + W*R, L + S, V). Returns cudaGetLastError() after the
-// launch (0 on success). Launches on `stream`; does not synchronise.
+// euclidean, 1 dot, 2 cosine, 3 haversine. M is the first design's merge
+// buffer length, a power of two >= max(L + W*R, L + S, V) and <= 2048; it is
+// checked as it was and sizes nothing now. Returns cudaGetLastError() after
+// the launch (0 on success). Launches on `stream`; does not synchronise.
 int semadb_vamana_beam_search(const void* vectors, long long cap, int D, const void* adjacency, int R,
                               const void* queries, int B, const void* seeds, int S, int L, int W, int M,
                               int max_hops, int metric, int track_visited, void* cand_d,
                               void* cand_i, void* vis_d, void* vis_i, void* hops, void* counts, void* stream) {
   const int V = ((2 * L + W - 1) / W) * W;
-  if (cap < 1 || D < 1 || D > kMaxD || R < 1 || B < 1 || L < 1 || L > kMaxL || W < 1 || W > L ||
-      W * R > kMaxWR || S < 0 || L + S > kMaxM || M > kMaxM || M < L + W * R || M < L + S || M < V ||
+  if (cap < 1 || cap > 0x7ffffffeLL || D < 1 || D > kMaxD || R < 1 || B < 1 || L < 1 || L > kMaxL || W < 1 ||
+      W > L || W * R > kMaxWR || S < 0 || L + S > kMaxM || M > kMaxM || M < L + W * R || M < L + S || M < V ||
       (M & (M - 1)) != 0 || metric < 0 || metric > 3 || (metric == kHaversine && D != 2)) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long smem = smem_bytes(D, L, W, V, M);
-  cudaError_t err = cudaFuncSetAttribute(vamana_beam_search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  vamana_beam_search_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(vectors), cap, D, static_cast<const int32_t*>(adjacency), R,
-      static_cast<const float*>(queries), static_cast<const int32_t*>(seeds), S, L, W, V, M, max_hops, metric,
-      track_visited, static_cast<float*>(cand_d), static_cast<int32_t*>(cand_i),
-      static_cast<float*>(vis_d), static_cast<int32_t*>(vis_i), static_cast<int32_t*>(hops),
-      static_cast<int32_t*>(counts));
-  return (int)cudaGetLastError();
+  const int track = track_visited != 0;
+  const Geometry g = pick_geometry(B, L, W, R, D, S, track);
+  if ((long long)g.team_bytes * g.qpb > kSmemBudget) return (int)cudaErrorInvalidValue;
+  const bool vec = D % 4 == 0 && (reinterpret_cast<uintptr_t>(vectors) & 15) == 0;
+  const float* v = static_cast<const float*>(vectors);
+  const int32_t* a = static_cast<const int32_t*>(adjacency);
+  const float* q = static_cast<const float*>(queries);
+  const int32_t* sd = static_cast<const int32_t*>(seeds);
+  float* cd = static_cast<float*>(cand_d);
+  int32_t* ci = static_cast<int32_t*>(cand_i);
+  float* vd = static_cast<float*>(vis_d);
+  int32_t* vi = static_cast<int32_t*>(vis_i);
+  int32_t* h = static_cast<int32_t*>(hops);
+  int32_t* c = static_cast<int32_t*>(counts);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+#define K10_LAUNCH(NW, VEC) \
+  launch_as<NW, VEC>(g, v, cap, D, a, R, q, B, sd, S, L, W, V, max_hops, metric, track, cd, ci, vd, vi, h, c, st)
+  if (g.nw == 1) err = vec ? K10_LAUNCH(1, true) : K10_LAUNCH(1, false);
+  else if (g.nw == 4) err = vec ? K10_LAUNCH(4, true) : K10_LAUNCH(4, false);
+  else err = vec ? K10_LAUNCH(8, true) : K10_LAUNCH(8, false);
+#undef K10_LAUNCH
+  return (int)err;
 }
 
 const char* semadb_vamana_search_error_string(int code) {

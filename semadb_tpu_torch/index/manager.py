@@ -7,7 +7,7 @@ the device, and the host indices ``text``, ``string``, ``integer``, ``float``
 and ``stringArray`` (inverted postings and TF-IDF text over the store). A
 ``vectorVamana`` with a quantizer, or with the hamming or jaccard metric
 (which force the binary store), is refused with a ``ValidationError`` that
-says it comes in slice 13 (:func:`check_supported`, called where a collection
+says it comes in slice 14 (:func:`check_supported`, called where a collection
 is created and where a shard is opened).
 
 Dispatch: for every schema property, diff the old/new msgpack documents to
@@ -89,7 +89,7 @@ def check_supported(schema: IndexSchema) -> None:
             if vp.quantizer is not None or vp.distance_metric in (C.DISTANCE_HAMMING, C.DISTANCE_JACCARD):
                 raise ValidationError(
                     f"a quantized vectorVamana index (property {prop}: a quantizer, or the hamming or "
-                    f"jaccard metric) is not supported by semadb_tpu_torch yet; it comes in slice 13"
+                    f"jaccard metric) is not supported by semadb_tpu_torch yet; it comes in slice 14"
                 )
 
 

@@ -11,7 +11,7 @@ and the prune K11 (``ops/kernels/vamana_search.py``,
 
 Plain f32 vectors only: a quantizer, or a hamming or jaccard metric (which
 force the binary store), raises ``NotImplementedError``, as does the pool
-build (``build_mode="pool"``, ``fastbuild.py``); both come in slice 13.
+build (``build_mode="pool"``, ``fastbuild.py``); both come in slice 14.
 Capacity grows along one chain (``graph.required_capacity``) live and on
 reload, so a reopened index has the capacity the live one had.
 """
@@ -71,7 +71,7 @@ PASS2_L = int(os.environ.get("SEMADB_VAMANA_PASS2_L", 0))
 # Bulk-build strategy: "search" (the two passes above) or "pool" (not ported)
 BUILD_MODE = os.environ.get("SEMADB_VAMANA_BUILD", "search")
 
-LATER = "it comes in slice 13 of the port"
+LATER = "it comes in slice 14 of the port"
 
 
 def _route_seeds(cents, reps, exists, q, metric: str, s: int):

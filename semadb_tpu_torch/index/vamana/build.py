@@ -104,8 +104,6 @@ def _insert_core(state: GraphState, new_ids: torch.Tensor, new_vecs: torch.Tenso
     """Write, search, prune the new rows, and the phase-A backedge scatter.
     Returns the target-sorted backedge arrays for the overflow rounds:
     (targets i32[E], sources i32[E], pending bool[E])."""
-    cap = state.capacity
-    R = config.degree_bound
     rows = new_ids.long()
     # Existing rows must be read BEFORE this batch rewrites them
     own_edges = state.adjacency[rows] if keep_current else None  # [B, R]
@@ -122,9 +120,18 @@ def _insert_core(state: GraphState, new_ids: torch.Tensor, new_vecs: torch.Tenso
 
     # 4. Robust prune → the new rows
     new_rows = robust_prune_batch(cand_d, cand_i, new_ids, state.vectors, config, alpha)
-    adjacency = state.adjacency
-    adjacency[rows] = new_rows
+    state.adjacency[rows] = new_rows
+    return backedges(state, new_ids, new_rows, config)
 
+
+def backedges(state: GraphState, new_ids: torch.Tensor, new_rows: torch.Tensor, config: GraphConfig):
+    """Step 5 of an insert, the backedges' phase A: each edge e→t of the new
+    rows appends e to t's row where there is room. Returns the target-sorted
+    backedge arrays for the overflow rounds: (targets i32[E], sources i32[E],
+    pending bool[E])."""
+    cap = state.capacity
+    R = config.degree_bound
+    adjacency = state.adjacency
     # 5. Backedges, phase A (append where there is room): the slot for the
     #    inbound edge e→t is edge_count[t] + rank(e among the edges to t)
     targets = new_rows.reshape(-1)
@@ -160,13 +167,33 @@ def _overflow_body(state: GraphState, targets, sources, pending, config: GraphCo
     the pending mask with the chunk's targets cleared."""
     cap = state.capacity
     R = config.degree_bound
+    dev = targets.device
+    pools = overflow_pools(state, targets, sources, pending, config, chunk, k_in)
+    if pools is None:
+        return pending
+    sel, cd, ci = pools
+    n_cand = (ci != NIL).sum(-1)
+    pruned = robust_prune_batch(cd, ci, sel.to(torch.int32), state.vectors, config, alpha)
+    state.adjacency[sel] = torch.where((n_cand <= R)[:, None], ci[:, :R], pruned)
+    processed = torch.zeros(cap, dtype=torch.bool, device=dev)
+    processed[sel] = True
+    return pending & ~processed[targets.clamp(0, cap - 1).long()]
+
+
+def overflow_pools(state: GraphState, targets, sources, pending, config: GraphConfig, chunk: int, k_in: int):
+    """One overflow round's chunk: the first ``chunk`` pending targets by id
+    and each one's pool, its edges and its pending inbound sources (at most
+    ``k_in``) deduplicated and sorted by (distance, id). Returns (targets
+    i64[n], pool distances f32[n, R + k_in], pool ids), or None when nothing
+    is pending."""
+    cap = state.capacity
     E = targets.shape[0]
     dev = targets.device
     t_mask = torch.zeros(cap + 1, dtype=torch.bool, device=dev)
     t_mask[torch.where(pending, targets.clamp(0, cap - 1), cap).long()] = True
     sel = torch.nonzero(t_mask[:cap]).flatten()[:chunk]  # ascending id
     if sel.numel() == 0:
-        return pending
+        return None
     sel32 = sel.to(torch.int32)
     # Targets arrive sorted: each one's inbound edges are one segment
     starts = torch.searchsorted(targets, sel32)
@@ -178,12 +205,7 @@ def _overflow_body(state: GraphState, targets, sources, pending, config: GraphCo
     cd = gather_distance(state.vectors, cand.clamp(0, cap - 1), state.vectors[sel], config.metric)
     cd, ci = dedup_by_id(cd.masked_fill(~cvalid, INF), cand.masked_fill(~cvalid, NIL))
     cd, ci = sort_by_distance(cd, ci)
-    n_cand = (ci != NIL).sum(-1)
-    pruned = robust_prune_batch(cd, ci, sel32, state.vectors, config, alpha)
-    state.adjacency[sel] = torch.where((n_cand <= R)[:, None], ci[:, :R], pruned)
-    processed = torch.zeros(cap, dtype=torch.bool, device=dev)
-    processed[sel] = True
-    return pending & ~processed[targets.clamp(0, cap - 1).long()]
+    return sel, cd, ci
 
 
 def _insert_step(state: GraphState, new_ids, new_vecs, config: GraphConfig, search_size: int, intra_k: int,

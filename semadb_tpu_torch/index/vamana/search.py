@@ -29,7 +29,7 @@ from semadb_tpu_torch.ops.kernels.vamana_search import vamana_beam_search
 from semadb_tpu_torch.ops.topk import INF, dedup_by_id, smallest_k_stable, sort_by_distance
 
 QUANTIZED_LATER = ("the quantized Vamana walk (binary or product codes) is not ported to semadb_tpu_torch "
-                   "yet: it comes in slice 13")
+                   "yet: it comes in slice 14")
 
 
 class BeamResult(NamedTuple):

@@ -3,10 +3,12 @@
 Replaces the XLA programs of ``semadb_tpu/index/vamana/build.py`` ·
 ``robust_prune_batch`` (``:97-156``) and ``_pairwise_among`` (``:72-94``): the
 greedy alpha prune of each node's sorted candidate pool into at most R edges.
-The kernel source is ``semadb_tpu_torch/csrc/vamana_prune.cu``; it computes a
-distance only from a kept candidate to the live candidates after it, so the
-JAX program's f32[B, P, P] matrix is never written. It is bound by bytes at
-the build's shapes, and its header says what the design does about that.
+The kernel source is ``semadb_tpu_torch/csrc/vamana_prune.cu``: a block a
+node stages its live candidates' rows in shared memory (as many as fit),
+computes panel by panel the distances from the next 32 live candidates to
+the later ones (a register-tiled FFMA product) and lets one warp run the greedy over the panel from kill masks, so the JAX program's
+f32[B, P, P] matrix is never written. It is bound by bytes at the build's
+shapes, and its header says what the design does about that.
 Built like K10: ``nvcc`` for ``sm_90a`` into ``semadb_tpu_torch/_build/`` at
 first use, loaded with ``ctypes``.
 

@@ -5,11 +5,15 @@ Replaces the XLA program of ``semadb_tpu/index/vamana/search.py`` ·
 W earliest unexpanded entries of every query's sorted candidate list, scoring
 their neighbours (``ops/distance.py:96-123`` ``gather_distance``) and merging
 them in (``_merge_sorted``, ``:76-113``). The kernel source is
-``semadb_tpu_torch/csrc/vamana_search.cu``; one block a query runs the whole
-walk with its list, its visited ring and its merge buffer in shared memory.
-It is bound by bytes, and its header says what the design does about that.
-Built like K3, K4 and K9: ``nvcc`` for ``sm_90a`` into
-``semadb_tpu_torch/_build/`` at first use, loaded with ``ctypes``.
+``semadb_tpu_torch/csrc/vamana_search.cu``; a team of warps a query runs the
+whole walk with its list, its visited ring and its survivors in shared memory
+(one warp a query at the query walk's shape, a block of 4 or 8 warps at the
+build's: the kernel picks its geometry from the sizes), scores rows with
+16-byte loads several rows in flight, and merges by sorting only the new
+entries that can enter the list. It is bound by bytes, and its header says
+what the design does about that. Built like K3, K4 and K9: ``nvcc`` for
+``sm_90a`` into ``semadb_tpu_torch/_build/`` at first use, loaded with
+``ctypes``.
 
 :func:`vamana_beam_search` returns :class:`BeamOut`: the candidate list
 (f32, i32)[B, L], the visited ring (f32, i32)[B, V] sorted by (distance,
@@ -56,7 +60,7 @@ MAX_M = 2048  # the merge buffer's longest padded length
 MAX_D = 4096
 NIL = -1
 START_ID = C.START_NODE_ID
-KERNELS = ("vamana_beam_search_kernel",)
+KERNELS = ("vamana_beam_search_kernel",)  # the name inside every instance of the template
 
 LAUNCHES = 0
 BUILD_LOG = ""

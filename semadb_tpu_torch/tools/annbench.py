@@ -492,7 +492,7 @@ def main(argv=None, keep: Optional[dict] = None) -> int:
         args.batch = 8192 if vamana else 4096
     if vamana and (args.fused or args.quantizer != "none" or args.sweep or args.probes or args.copies):
         ap.error("--engine vamana takes none of --fused, --quantizer, --sweep, --probes, --copies "
-                 "(the quantized walk comes in slice 13)")
+                 "(the quantized walk comes in slice 14)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("annbench: --device cuda needs a CUDA device (pass --device cpu to run the plain versions)")

@@ -2,9 +2,11 @@
 least traffic.
 
 Random graphs, queries and prune pools made from a numpy seed, for the card
-tests (``tests/test_torch_cuda.py``) and ``chip_smoke.py``; and the bytes
-each kernel must move for given operands (:func:`k10_least_bytes`,
-:func:`k11_least_bytes`), from which ``chip_smoke.py`` takes their bounds. With
+tests (``tests/test_torch_cuda.py``) and ``chip_smoke.py``; the operands of
+K10 and K11 at the Vamana cell's shapes on a built index (:func:`cell_walks`,
+:func:`cell_pools`, for ``chip_smoke.py``); and the bytes each kernel must
+move for given operands (:func:`k10_least_bytes`, :func:`k11_least_bytes`),
+from which ``chip_smoke.py`` takes their bounds. With
 ``integer=True`` every coordinate is an integer in [-8, 8] (the start row
 too), so that at D ≤ 128 every euclidean, dot and cosine term and sum is
 exact in f32 and a kernel must equal its plain version bit for bit; haversine
@@ -24,6 +26,8 @@ from semadb_tpu_torch.ops.topk import sort_by_distance
 
 NIL = -1
 START_ID = C.START_NODE_ID
+CELL_PASS1_B = 512  # a pass-1 insert batch of the 1M cell (INSERT_CHUNK)
+CELL_PASS2_B = 4096  # a pass-2 batch (PASS2_CHUNK)
 
 
 def _points(rng, n: int, dim: int, integer: bool, metric: str) -> np.ndarray:
@@ -136,3 +140,64 @@ def k11_least_bytes(cand_d, cand_i, self_ids, dim: int, degree: int) -> dict:
     rows = int(torch.unique(cand_i[live]).numel())
     io = cand_i.numel() * 8 + self_ids.numel() * 4 + self_ids.numel() * degree * 4
     return {"bytes": rows * dim * 4 + io, "distinct_rows": rows, "live_rows": int(live.sum())}
+
+
+def cell_walks(idx, queries: np.ndarray, batch: int, search_size: int) -> dict:
+    """K10's operands on a built ``IndexVamana``: name → (arguments, shape).
+    ``query``: the first ``batch`` queries at L = ``search_size``, W = 2,
+    their entry seeds, no ring; ``pass1`` and ``pass2``: the index's first
+    points as an insert batch walks them (L = its searchSize, W = BUILD_W,
+    the ring, compacted)."""
+    from semadb_tpu_torch.index.vamana import build
+
+    st, cfg = idx.state, idx.config
+    q = torch.from_numpy(np.ascontiguousarray(queries[:batch], np.float32)).to(idx.device)
+    seeds = idx._seeds_for(q)
+    walks = {"query": ((st.vectors, st.adjacency, q, search_size, 2, 0, cfg.metric, seeds, False),
+                       f"the cell's query walk: B={batch}, L={search_size}, W=2, R={cfg.degree_bound}, "
+                       f"D={cfg.dim}, {seeds.shape[1]} entry seeds, no ring")}
+    for name, n in (("pass1", CELL_PASS1_B), ("pass2", CELL_PASS2_B)):
+        walks[name] = ((st.vectors, st.adjacency, st.vectors[2 : 2 + n].contiguous(), cfg.search_size,
+                        build.BUILD_W, 0, cfg.metric, None, True),
+                       f"pass {name[-1]}'s walk: B={n}, L={cfg.search_size}, W={build.BUILD_W}, ring, compacted")
+    return walks
+
+
+def cell_pools(idx) -> dict:
+    """K11's operands on a built ``IndexVamana``: name → (arguments, shape).
+    ``pass2``: the pools an insert makes for the index's first 4,096 points
+    (ring, 8 in-batch peers, current out-edges) at its alpha; ``pass1``: the
+    first 512's (ring and peers) at alpha 1.0; ``overflow``: one overflow
+    round, the first OVERFLOW_CHUNK targets that the backedges of those
+    4,096 points' rows overflow (appended, where there is room, to a copy of
+    the adjacency), each with its edges and pending sources (P = R + k_in)."""
+    from semadb_tpu_torch.index.vamana import build
+    from semadb_tpu_torch.index.vamana.graph import GraphState
+
+    st, cfg = idx.state, idx.config
+    R, r_stop = cfg.degree_bound, build.r_stop(cfg)
+    pids = torch.arange(2, 2 + CELL_PASS2_B, device=idx.device, dtype=torch.int32)
+    pv = st.vectors[pids.long()].contiguous()
+    pd, pi = build.candidate_pools(st, pids, pv, cfg, cfg.search_size, 8, own_edges=st.adjacency[pids.long()],
+                                   expand_width=build.BUILD_W)
+    n1 = CELL_PASS1_B
+    qd, qi = build.candidate_pools(st, pids[:n1], pv[:n1], cfg, cfg.search_size, 8, expand_width=build.BUILD_W)
+    gs = GraphState(st.vectors, st.adjacency.clone(), st.exists)
+    targets, sources, pending = build.backedges(gs, pids, gs.adjacency[pids.long()].clone(), cfg)
+    pools = build.overflow_pools(gs, targets, sources, pending, cfg, build.OVERFLOW_CHUNK, R)
+    if pools is None:
+        raise ValueError("no backedge target of the index's graph overflowed")
+    sel, od, oi = pools
+    return {
+        "pass2": ((pd.contiguous(), pi.to(torch.int32).contiguous(), pids, st.vectors, R, r_stop, cfg.alpha,
+                   cfg.metric),
+                  f"pass 2's prune: B={CELL_PASS2_B}, P={pi.shape[1]} (ring + 8 peers + {R} own edges), R={R}, "
+                  f"alpha {cfg.alpha}, the cell's own pools"),
+        "pass1": ((qd.contiguous(), qi.to(torch.int32).contiguous(), pids[:n1], st.vectors, R, r_stop, 1.0,
+                   cfg.metric),
+                  f"pass 1's prune: B={n1}, P={qi.shape[1]}, alpha 1.0"),
+        "overflow": ((od.contiguous(), oi.to(torch.int32).contiguous(), sel.to(torch.int32), st.vectors, R, r_stop,
+                      cfg.alpha, cfg.metric),
+                     f"one overflow round: B={sel.shape[0]} targets, P={oi.shape[1]} (R + k_in), alpha {cfg.alpha}, "
+                     f"{int(pending.sum())} pending backedges"),
+    }

@@ -772,6 +772,86 @@ def test_vamana_robust_prune_matches_plain(cuda, b, p, R, metric, integer):
             assert float(same.float().mean()) >= 0.99, float(same.float().mean())
 
 
+# The boundaries of the second design's geometry (pick_geometry in
+# csrc/vamana_search.cu; a launch whose block does not fit fails), (B, L, W,
+# R, D, metric, seeds, track_visited): a batch no multiple of the 4 queries a
+# block of the one-warp geometry, W*R and S at and past 128 (one warp or a
+# block a query), B on either side of 1,024 (8 or 4 warps), D off the 16-byte grid (element
+# loads), L = 1, W = L, D = 1,536 (several passes of a row)
+K10_BOUNDARY_CASES = [
+    (4097, 40, 2, 64, 128, "euclidean", True, False), (5, 40, 1, 129, 48, "euclidean", False, True),
+    (9, 128, 1, 64, 48, "euclidean", True, False), (9, 129, 2, 64, 48, "euclidean", True, False),
+    (1024, 75, 8, 64, 48, "euclidean", True, True), (1025, 75, 8, 64, 48, "euclidean", False, True),
+    (33, 40, 2, 64, 37, "euclidean", True, False), (33, 40, 2, 64, 37, "dot", False, True),
+    (17, 1, 1, 32, 48, "euclidean", False, True), (13, 30, 30, 16, 48, "dot", False, True),
+    (3, 40, 2, 64, 1536, "cosine", True, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,L,W,R,D,metric,seeded,track", K10_BOUNDARY_CASES)
+def test_vamana_beam_search_boundary_shapes(cuda, b, L, W, R, D, metric, seeded, track):
+    from semadb_tpu_torch.ops.kernels import vamana_search
+    from semadb_tpu_torch.tools import vamana_operands as vo
+
+    v, a = vo.random_graph(3000, D, R, integer=True, metric=metric, seed=b + D, device=cuda)
+    q = vo.random_queries(b, D, integer=True, metric=metric, seed=L, device=cuda)
+    seeds = vo.random_seeds(b, L, v.shape[0], seed=W, device=cuda) if seeded else None
+    got = vamana_search.vamana_beam_search(v, a, q, L, W, 0, metric, seeds=seeds, track_visited=track)
+    torch.cuda.synchronize()
+    want = vamana_search.beam_search_plain(v, a, q, L, W, 0, metric, seeds=seeds, track_visited=track)
+    for name, g, w in zip(got._fields, _k10_out(got), _k10_out(want)):
+        assert torch.equal(g, w), (name, (g != w).nonzero()[:5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_vamana_beam_search_real_entries_at_inf(cuda, track, seeded):
+    """The start node and every 5th row at distance inf: a real entry at inf
+    heads the list, so the seeds' merge (compacted) keeps every new entry and
+    its holes; without seeds the walk cannot start."""
+    from semadb_tpu_torch.ops.kernels import vamana_search
+    from semadb_tpu_torch.tools import vamana_operands as vo
+
+    v, a = vo.random_graph(2000, 16, 32, integer=True, metric="euclidean", seed=9, device=cuda)
+    v[1, 0] = 3e38  # (3e38 - q)^2 overflows
+    v[2::5, 0] = 3e38
+    q = vo.random_queries(70, 16, integer=True, metric="euclidean", seed=10, device=cuda)
+    seeds = vo.random_seeds(70, 30, v.shape[0], seed=11, device=cuda) if seeded else None
+    for L, W in ((30, 2), (30, 8)):
+        got = vamana_search.vamana_beam_search(v, a, q, L, W, 0, "euclidean", seeds=seeds, track_visited=track)
+        want = vamana_search.beam_search_plain(v, a, q, L, W, 0, "euclidean", seeds=seeds, track_visited=track)
+        for name, g, w in zip(got._fields, _k10_out(got), _k10_out(want)):
+            assert torch.equal(g, w), (L, W, name, (g != w).nonzero()[:5])
+        assert seeded or bool(torch.isinf(got.cand_dists[:, 0]).all())
+
+
+# The second K11's boundaries, (B, P, R, metric, D, r_stop): one past a panel,
+# r_stop below R (mid-panel) and above it (R < 8), pools read from device
+# memory by element loads (D = 131) and by 16-byte loads (P = 2,048, D =
+# 1,536), pools on both sides of the stage (P = 224, real values)
+K11_BOUNDARY_CASES = [
+    (9, 33, 32, "euclidean", 128, 32), (33, 224, 64, "euclidean", 128, 40), (17, 100, 4, "euclidean", 128, 8),
+    (9, 1500, 64, "euclidean", 131, 64), (7, 2048, 64, "dot", 128, 64), (64, 224, 64, "cosine", 1536, 64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,p,R,metric,D,r_stop", K11_BOUNDARY_CASES)
+def test_vamana_robust_prune_boundary_shapes(cuda, b, p, R, metric, D, r_stop):
+    from semadb_tpu_torch.ops.kernels import vamana_prune
+    from semadb_tpu_torch.tools import vamana_operands as vo
+
+    v, _ = vo.random_graph(5000, D, 8, integer=True, metric=metric, seed=p + D, device=cuda)
+    d, i, self_ids = vo.prune_pools(v, b, p, metric, seed=b + r_stop)
+    for alpha in (1.0, 1.2):
+        got = vamana_prune.vamana_robust_prune(d, i, self_ids, v, R, r_stop, alpha, metric)
+        torch.cuda.synchronize()
+        want = vamana_prune.robust_prune_plain(d, i, self_ids, v, R, r_stop, alpha, metric)
+        assert torch.equal(got, want), (alpha, (got != want).any(1).nonzero()[:5])
+
+
 @pytest.mark.cuda
 def test_vamana_kernels_raise_when_the_build_fails(cuda, monkeypatch):
     """On a CUDA tensor a wrapper launches its kernel or raises: a library

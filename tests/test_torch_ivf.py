@@ -581,7 +581,7 @@ def test_product_quantizer_on_ivf_is_admitted_and_vamana_refused():
     check_supported(port_models.IndexSchema.from_dict(IVF_SCHEMA))
     check_supported(port_models.IndexSchema.from_dict({"v": {"type": "vectorVamana", "vectorVamana": {
         "vectorSize": 4, "distanceMetric": "euclidean"}}}))
-    with pytest.raises(ValidationError, match="vectorVamana.*slice 13"):
+    with pytest.raises(ValidationError, match="vectorVamana.*slice 14"):
         check_supported(port_models.IndexSchema.from_dict({"v": {"type": "vectorVamana", "vectorVamana": {
             "vectorSize": 16, "distanceMetric": "euclidean",
             "quantizer": {"type": "product", "product": {"numCentroids": 16, "numSubVectors": 4}}}}}))

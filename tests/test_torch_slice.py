@@ -276,7 +276,7 @@ def test_jax_replays_port_journal(tmp_path):
 
 
 def test_port_admits_fused_and_pq_and_refuses_vamana(tmp_path):
-    """A quantized vectorVamana is refused by name (slice 13 brings it);
+    """A quantized vectorVamana is refused by name (slice 14 brings it);
     vectorFused, a product quantizer and a plain vectorVamana, ported since,
     are admitted."""
     node, srv, base = _start("port", str(tmp_path))
@@ -286,7 +286,7 @@ def test_port_admits_fused_and_pq_and_refuses_vamana(tmp_path):
             "quantizer": {"type": "binary", "binary": {"threshold": 0.0}}}}}
         r = requests.post(base, json={"id": "nope", "indexSchema": vamana}, headers=HEADERS)
         assert r.status_code == 400 and "vectorVamana" in r.json()["error"], r.text
-        assert "slice 13" in r.json()["error"], r.text
+        assert "slice 14" in r.json()["error"], r.text
         for name, schema in (
             ("fusedcol", {"v": {"type": "vectorFused", "vectorFused": {"views": [
                 {"vectorSize": 4, "distanceMetric": "euclidean"}, {"vectorSize": 4, "distanceMetric": "dot"}]}},

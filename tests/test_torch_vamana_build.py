@@ -255,16 +255,16 @@ def test_snapshot_writes_only_dirty_chunks(tmp_path, monkeypatch):
 
 
 def test_quantized_and_pool_builds_raise():
-    """What slice 13 brings is refused by name, not served wrong."""
+    """What slice 14 brings is refused by name, not served wrong."""
     from semadb_tpu_torch.models.quantizer import BinaryQuantizerParams, Quantizer
 
     q = Quantizer(type="binary", binary=BinaryQuantizerParams(threshold=0.0))
-    with pytest.raises(NotImplementedError, match="slice 13"):
+    with pytest.raises(NotImplementedError, match="slice 14"):
         port_vamana.IndexVamana(PortParams(vector_size=8, distance_metric="euclidean", quantizer=q), CPU)
-    with pytest.raises(NotImplementedError, match="slice 13"):
+    with pytest.raises(NotImplementedError, match="slice 14"):
         port_vamana.IndexVamana(PortParams(vector_size=8, distance_metric="hamming"), CPU)
     idx = port_vamana.IndexVamana(PortParams(vector_size=8, distance_metric="euclidean"), CPU)
-    with pytest.raises(NotImplementedError, match="slice 13"):
+    with pytest.raises(NotImplementedError, match="slice 14"):
         idx.insert_bulk(np.arange(2, 10), np.zeros((8, 8), np.float32), build_mode="pool")
 
 
