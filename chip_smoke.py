@@ -250,15 +250,49 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (v2): every distance numpy's within 1e-5 relative, recall@10 >= 0.95.
    Then 1,000 deletes and 1,000 updates a collection over HTTP: no deleted
    id may come back, the same checks hold, 20 updated points find
-   themselves; a quantized ``vectorVamana`` must be refused naming slice 14.
-   Then a flush (the dirty-row snapshot), close and reopen: every search
-   must answer the same. K10 and K11 must have launched.
+   themselves. Then a flush (the dirty-row snapshot), close and reopen: every
+   search must answer the same. K10 and K11 must have launched.
+17. K10's bit and ADC routes (``csrc/vamana_search.cu``, the quantized
+   walk) against their plain versions: 26 cases on integer operands (the
+   signs of an integer graph's vectors packed, D in {40, 100, 128, 200},
+   hamming and jaccard with some all-zero codes; random PQ codes through
+   integer-valued tables, M in {4, 8, 12, 16, 32, 96}, K in {16, 256}, the
+   96 KB tables read through L2), at the cells' walk (B = 8,192, L = 75,
+   W = 2, 16 seeds, the ring) and the geometry's boundaries, with and
+   without seeds and the ring, every output bit for bit, and 51 repeats at
+   the two cells' walks; on real-valued tables (M = 8 and 96, B = 2,048)
+   the list distances within 1e-6 of the summed terms.
+18-19. The BQ and PQ Vamana cells (``BENCH_MODE=bq`` and ``pq``):
+   ``annbench.main(["--engine", "vamana", "--quantizer", "binary" or
+   "product"])``, the cell of phase 15 with a binary quantizer (hamming,
+   fit at 10,000 points) or a product quantizer (M = 8, K = 256, OPQ, fit at
+   10,000 points), queries at L = 75 reranked in f32. Recall@10 must be >=
+   0.92 (BQ; the JAX package read 0.9366) and >= 0.94 (PQ; 0.9615); K10's
+   route, K4 and K11 must have launched. Then K10's route on the cell's first
+   batch (checked against the plain version, timed, its bound from the
+   distinct code and adjacency rows) and K4 at the rerank of that walk (B =
+   8,192, rr = 225, k = 10, D = 128).
+20. The pool build: ``annbench.main(["--engine", "vamana", "--build",
+   "pool", "--search-size", "75"])`` on the same corpus: recall@10 >= 0.97
+   at L = 75 and >= 0.95 at L = 40 on the same build, its seconds by stage
+   and the peak device memory.
+21. Three quantized v2 ``vectorVamana`` collections over HTTP with
+   ``config/singleServer.yaml``, one shard each, 20,000 points each: a
+   binary quantizer (hamming), a product quantizer (8 x 256) and the
+   hamming metric on 0/1 vectors. Fifty searches and fifty filtered of each
+   against numpy (BQ and PQ distances f32 within 1e-5 relative, unfiltered
+   recall@10 >= 0.9; hamming bit counts exact; every filter kept), 1,000
+   deletes and 1,000 updates a
+   collection (no deleted id back, 20 updated points each find themselves
+   at distance 0), a flush, close and reopen (every search the same). K10's
+   bit and ADC routes and K4 must have launched.
 
 Each kernel's bound is its bytes (each input read once, each output
 written once; for K2 each distinct row once; for K3 each distinct probed
 cluster once, for K4 each distinct live pool row once; for K10 each
 distinct row the batch's walks score and each distinct adjacency row they
-read once; for K11 each distinct live candidate's row once; for K9 each query's
+read once, a code row's bytes in place of a row's on its quantized routes;
+for K11 each distinct live candidate's row once; for K9 each query's
 table once, each distinct probed cluster's ids once and the codes of its
 live slots once) over 3.35 TB/s, from this run's inputs. K2 does no arithmetic. K1's work is bit operations, and the
 card's data sheet gives no rate for the tensor cores' single-bit MMA, so
@@ -2697,17 +2731,6 @@ def phase_vamana_http(torch, counted, device, seed: int, n_points: int = HTTP_VA
                 top = bq.http_json(v1, "POST", "/vone/points/search", {"vector": moved_to[j].tolist(), "limit": 1})
                 if top["points"][0]["id"] != ids[i]:
                     raise AssertionError(f"an updated point does not find itself: {top['points'][0]}")
-            try:
-                bq.http_json(srv.base, "POST", "", {"id": "vbq", "indexSchema": {"v": {
-                    "type": "vectorVamana", "vectorVamana": {"vectorSize": dim, "distanceMetric": "euclidean",
-                                                             "quantizer": {"type": "binary",
-                                                                           "binary": {"threshold": 0.0}}}}}})
-            except HTTPError as e:
-                refused = e.code == 400 and "slice 14" in e.read().decode()
-            else:
-                refused = False
-            if not refused:
-                raise AssertionError("a quantized vectorVamana collection was not refused naming slice 14")
             chunks = {}
             for name in cols:
                 col = srv.node.get_collection(bq.USER["X-User-Id"], name)
@@ -2724,12 +2747,416 @@ def phase_vamana_http(torch, counted, device, seed: int, n_points: int = HTTP_VA
         f"HTTP) in {ingest_s:.2f} s; 10 single searches of each, a batch of 10 and 10 filtered (v2): recall@10 "
         f"{recall} against numpy, every distance exact, in {search_s:.2f} s; {HTTP_VAMANA_WRITES} deletes and "
         f"{HTTP_VAMANA_WRITES} updates a collection in {writes_s:.2f} s: recall@10 {recall_after}, no deleted id "
-        f"back, 20 updated points find themselves; a quantized vectorVamana refused naming slice 14; the flush "
+        f"back, 20 updated points find themselves; the flush "
         f"after the writes wrote {chunks} chunks (dirty rows only); after close and reopen every search answers "
         f"the same; launches {launches}")
     if launches["K10"] <= 0 or launches["K11"] <= 0:
         raise AssertionError(f"the HTTP Vamana phase did not run K10 and K11: {launches}")
     return {"recall": recall, "recall_after": recall_after, "launches": launches, "chunks": chunks}
+
+
+# K10's quantized routes on integer operands, every output bit for bit: (B, L,
+# W, R, width, route, bit metric or K, seeds, track_visited). width is D for
+# the bit route (ceil(D / 32) words: 100 is 4 words, 200 is 7 off the 16-byte
+# loads, 40 is 2) and M for the ADC route (96 at K = 256, a 96 KB table read
+# through L2; 12 off the 8-byte loads; 4, 8, 16 staged). The first two are
+# the BQ and PQ cells' query walk (B = 8,192, L = 75, W = 2, 16 seeds, the
+# ring); the rest the geometry's boundaries (pick_geometry), with and without
+# the ring (without it, the hole cut) and jaccard's empty unions
+K10_CODE_CASES = [
+    (8192, 75, 2, 64, 128, "bit", "hamming", True, True), (8192, 75, 2, 64, 8, "adc", 256, True, True),
+    (7, 40, 2, 64, 128, "bit", "jaccard", True, False), (33, 75, 8, 64, 100, "bit", "hamming", False, True),
+    (33, 75, 2, 64, 200, "bit", "jaccard", True, True), (9, 129, 2, 64, 40, "bit", "hamming", True, False),
+    (1025, 75, 8, 64, 128, "bit", "hamming", False, True), (5, 40, 1, 129, 128, "bit", "jaccard", False, True),
+    (17, 1, 1, 32, 128, "bit", "hamming", False, True), (4097, 40, 2, 64, 128, "bit", "hamming", True, False),
+    (33, 75, 2, 64, 128, "bit", "hamming", False, False), (512, 75, 8, 64, 128, "bit", "jaccard", False, True),
+    (1024, 75, 8, 64, 128, "bit", "hamming", True, True), (8192, 75, 2, 64, 128, "bit", "jaccard", True, True),
+    (33, 75, 2, 64, 4, "adc", 256, True, False), (33, 75, 8, 64, 16, "adc", 256, False, True),
+    (7, 40, 2, 64, 96, "adc", 256, True, True), (9, 129, 2, 64, 12, "adc", 16, True, False),
+    (1025, 75, 8, 64, 8, "adc", 256, False, True), (4097, 40, 2, 64, 8, "adc", 256, True, False),
+    (17, 1, 1, 32, 8, "adc", 256, False, True), (5, 40, 1, 129, 8, "adc", 256, False, False),
+    (512, 75, 8, 64, 32, "adc", 256, False, True), (1024, 75, 8, 64, 96, "adc", 256, True, True),
+    (33, 75, 2, 64, 8, "adc", 256, False, False), (8192, 75, 2, 64, 16, "adc", 256, True, True),
+]
+K10_CODE_REPEAT_CASES = (0, 1)  # the cells' query walks
+VAMANA_BQ_ARGV = ("--engine", "vamana", "--quantizer", "binary")
+VAMANA_BQ_RECALL = 0.92  # the JAX package read 0.9366 here (TPU history, BENCHMARKS.md:205-213)
+VAMANA_PQ_ARGV = ("--engine", "vamana", "--quantizer", "product")
+VAMANA_PQ_RECALL = 0.94  # the JAX package read 0.9615 here (TPU history, BENCHMARKS.md:489)
+VAMANA_POOL_ARGV = ("--engine", "vamana", "--build", "pool", "--search-size", "75")
+VAMANA_POOL_RECALL = 0.97  # at L = 75; the JAX package read 0.9929-0.9989 at 1M (TPU history, BENCHMARKS.md:454-460)
+VAMANA_POOL_L40_RECALL = 0.95  # at L = 40, a second operating point of the same build
+HTTP_QUANT_POINTS = 20_000
+HTTP_QUANT_RECALL = 0.9
+HTTP_QUANT_QUERIES = 50  # a kind of search; at 10 a recall moves in steps of 0.01 around its bar
+ADC_RTOL = 1e-6  # of the summed terms' magnitude, real-valued tables
+LIBRARY_NONE_K10_CODES = "none: no one PyTorch call walks a graph"
+
+
+def _k10_code_operands(torch, vo, vamana_search, device, c, b, L, R, width, route, param, seeded, integer=True):
+    dim = width if route == "bit" else 16
+    n = 100_000 if b >= 512 else 5_000
+    v, a = vo.random_graph(n, dim, R, integer=True, metric="euclidean", seed=500 + c, device=device)
+    q = vo.random_queries(b, dim, integer=True, metric="euclidean", seed=600 + c, device=device)
+    if route == "bit":
+        codes, prep = vo.bit_codes(v, q, zero_rows=0.05 if param == "jaccard" else 0.0, seed=c)
+        cq = vamana_search.Codes("binary", codes, prep, param)
+    else:
+        codes, prep = vo.adc_codes(v.shape[0], b, width, param, integer=integer, seed=700 + c, device=device)
+        cq = vamana_search.Codes("product", codes, prep)
+    seeds = vo.random_seeds(b, 16 if b >= 512 else L, v.shape[0], seed=800 + c, device=device) if seeded else None
+    return v, a, q, seeds, cq
+
+
+def phase_vamana_code_kernels(torch, vamana_search, device) -> dict:
+    """K10's bit and ADC routes against their plain versions on the card:
+    integer operands bit for bit (51 repeats at the cells' walks), then
+    real-valued ADC tables within ADC_RTOL."""
+    from semadb_tpu_torch.tools import vamana_operands as vo
+    from semadb_tpu_torch.vectorstore.store import pq_gather_distance
+
+    calls = 0
+    for c, (b, L, W, R, width, route, param, seeded, track) in enumerate(K10_CODE_CASES):
+        v, a, q, seeds, cq = _k10_code_operands(torch, vo, vamana_search, device, c, b, L, R, width, route, param,
+                                                seeded)
+        args = (v, a, q, L, W, 0, "euclidean", seeds, track, cq)
+        got = vamana_search.vamana_beam_search(*args)
+        torch.cuda.synchronize()
+        want = vamana_search.beam_search_plain(*args)
+        what = f"{route} B={b} L={L} W={W} R={R} width={width} {param} seeds={seeded} track={track}"
+        _k10_equal(torch, got, want, what)
+        calls += 1
+        if c in K10_CODE_REPEAT_CASES:
+            for _ in range(VAMANA_REPEATS):
+                _k10_equal(torch, vamana_search.vamana_beam_search(*args), got, f"repeat at {what}")
+            calls += VAMANA_REPEATS
+    err = 0.0
+    for c, m in enumerate((8, 96)):
+        v, a, q, seeds, cq = _k10_code_operands(torch, vo, vamana_search, device, 90 + c, 2048, 75, 64, m, "adc",
+                                                256, True, integer=False)
+        args = (v, a, q, 75, 2, 0, "euclidean", seeds, True, cq)
+        got = vamana_search.vamana_beam_search(*args)
+        want = vamana_search.beam_search_plain(*args)
+        ok = got.cand_ids >= 0
+        ref = pq_gather_distance(cq.codes, got.cand_ids.clamp(min=0), cq.prepared, 256)
+        mag = float(cq.prepared.abs().max()) * m
+        e = float((got.cand_dists - ref).abs()[ok].max())
+        same = float((got.cand_ids == want.cand_ids).float().mean())
+        if e > ADC_RTOL * mag or same < 0.95:
+            raise AssertionError(f"K10's ADC route on real tables (M={m}): |err| {e:.3g} against "
+                                 f"{ADC_RTOL * mag:.3g}, {same:.4f} of the list equal to the plain version's")
+        err = max(err, e)
+    log(f"[vamana-codes] K10's bit and ADC routes == plain bit for bit at {len(K10_CODE_CASES)} integer-valued "
+        f"cases (hamming and jaccard, D 40-200, M 4-96 staged and through L2, B 5-8192, L 1-129, W 1-8, seeds, "
+        f"rings) and {VAMANA_REPEATS} repeats at the cells' walks ({calls} calls); real-valued ADC tables at M = 8 "
+        f"and 96: max |err| {err:.3g} of the summed terms")
+    return {"calls": calls, "adc_real_err": err}
+
+
+def _code_walk(torch, idx, queries, batch: int):
+    """The operands of the walk a quantized cell's search runs on its first
+    batch: the queries, K10's codes and prepared queries, the entry seeds."""
+    from semadb_tpu_torch.ops.kernels import vamana_search
+
+    q = torch.from_numpy(np.ascontiguousarray(queries[:batch], np.float32)).to(idx.device)
+    qa = idx._quant_args(q)
+    cq = vamana_search.Codes(qa["quant"].kind, qa["qcodes"], qa["qquery"].contiguous(), qa["quant"].bit_metric)
+    return q, cq, idx._seeds_for(q)
+
+
+def phase_vamana_quant_cell(torch, counted, vamana_search, ivf_rerank, kind: str) -> dict:
+    """A quantized Vamana cell (bench.py's BENCH_MODE=bq or pq) through
+    annbench.main: recall against exact f32, QPS, the build's and the fit's
+    seconds; then K10's route and K4 at the cell's own walk and rerank."""
+    from semadb_tpu_torch.tools import vamana_operands as vo
+
+    argv, floor = (VAMANA_BQ_ARGV, VAMANA_BQ_RECALL) if kind == "bq" else (VAMANA_PQ_ARGV, VAMANA_PQ_RECALL)
+    route = "bit" if kind == "bq" else "adc"
+    vamana_search.LAUNCHES_BY.clear()
+    res, prof, launches, _, keep = _run_annbench(counted, argv, f"{kind}-cell")
+    by_route = dict(vamana_search.LAUNCHES_BY)
+    if res["recall@10"] < floor:
+        raise AssertionError(f"the {kind} cell's recall@10 {res['recall@10']} is below {floor}")
+    if by_route.get(route, 0) <= 0 or launches["K4"] <= 0 or launches["K11"] <= 0:
+        raise AssertionError(f"the {kind} cell did not run K10's {route} route, K4 and K11: {launches} {by_route}")
+    idx = keep["index"]
+    L, b = res["search_size"], res["batch"]
+    q, cq, seeds = _code_walk(torch, idx, keep["queries"], b)
+    st = idx.state
+    args = (st.vectors, st.adjacency, q, L, 2, 0, idx.config.metric, seeds, True, cq)
+    got = vamana_search.vamana_beam_search(*args)
+    want = vamana_search.beam_search_plain(*args)
+    if route == "bit":
+        _k10_equal(torch, got, want, f"the {kind} cell's walk")
+        err = 0.0
+    else:
+        from semadb_tpu_torch.vectorstore.store import pq_gather_distance
+
+        ok = got.cand_ids >= 0
+        ref = pq_gather_distance(cq.codes, got.cand_ids.clamp(min=0), cq.prepared, cq.prepared.shape[2])
+        err = float((got.cand_dists - ref).abs()[ok].max())
+        mag = float(cq.prepared.abs().max()) * cq.prepared.shape[1]
+        same = float((got.cand_ids == want.cand_ids).float().mean())
+        if err > ADC_RTOL * mag or same < 0.95:
+            raise AssertionError(f"K10's ADC route on the {kind} cell: |err| {err:.3g}, {same:.4f} of the list equal")
+    k10 = {"max_abs_err": err, **vo.k10_least_bytes(*args[:9], codes=cq),
+           "shape": (f"the {kind} cell's query walk: B={b}, L={L}, W=2, R={idx.config.degree_bound}, "
+                     f"{seeds.shape[1]} entry seeds, the ring; codes {tuple(cq.codes.shape)} "
+                     f"{str(cq.codes.dtype).replace('torch.', '')}, prepared {tuple(cq.prepared.shape)}"),
+           "ms": _device_ms(torch, functools.partial(vamana_search.vamana_beam_search, *args), runs=VAMANA_TIMED_RUNS,
+                            kernel=vamana_search.KERNELS),
+           "plain_ms": _median_call_ms(torch, functools.partial(vamana_search.beam_search_plain, *args), runs=3),
+           "hops_per_query": float(want.hops.float().mean())}
+    k10["bound_ms"] = _bound_ms(k10["bytes"])
+    # K4 at the rerank: the list and the ring, the start node dropped
+    pool = torch.cat([got.cand_ids, got.visited_ids], dim=1)
+    pool = pool.masked_fill(pool == vamana_search.START_ID, -1).contiguous()
+    coarse = torch.cat([got.cand_dists, got.visited_dists], dim=1).contiguous()
+    ops = (st.vectors, q, pool, coarse, LIMIT, idx.config.metric, True)
+    kgot = ivf_rerank.ivf_exact_rerank(*ops)
+    kwant = ivf_rerank.ivf_exact_rerank_plain(*ops)
+    kerr = check_rows(torch, kwant, kgot, _k4_dist_of(torch, st.vectors, q, idx.config.metric),
+                      _k4_atol(torch, st.vectors, q), f"K4 at the {kind} cell's rerank")
+    nbytes, rows = _k4_bytes(torch, st.vectors, q, pool, coarse, LIMIT)
+    k4 = {"max_abs_err": kerr, "bytes": nbytes, "distinct_rows": rows, "bound_ms": _bound_ms(nbytes),
+          "shape": f"the {kind} cell's rerank: B={b}, rr={pool.shape[1]} (L + V), k={LIMIT}, D={q.shape[1]}, dedup",
+          "ms": _device_ms(torch, functools.partial(ivf_rerank.ivf_exact_rerank, *ops), runs=IVF_TIMED_RUNS,
+                           kernel="rerank_kernel"),
+          "plain_ms": _median_call_ms(torch, functools.partial(ivf_rerank.ivf_exact_rerank_plain, *ops), runs=3)}
+    log(f"[{kind}-cell] recall@10 {res['recall@10']:.4f} (floor {floor}), QPS {res['qps']:.0f}, build "
+        f"{res['build_s']:.2f} s (fit {res['build_split_s']['fit_s']:.3f} s); K10 {route} route at the cell's walk "
+        f"{k10['ms']:.4f} ms (bound {k10['bound_ms']:.4f}, {k10['bound_ms'] / k10['ms']:.1%}), plain "
+        f"{k10['plain_ms']:.2f} ms, {k10['hops_per_query']:.2f} hops a query, {k10['distinct_rows_scored']} distinct "
+        f"rows of {k10['rows_scored']} scored; K4 at the rerank {k4['ms']:.4f} ms (bound {k4['bound_ms']:.4f}, "
+        f"{k4['bound_ms'] / k4['ms']:.1%}), plain {k4['plain_ms']:.3f} ms; launches {launches}, K10 by route "
+        f"{by_route}")
+    del keep
+    return {"res": res, "profile": prof, "launches": launches, "by_route": by_route, "k10": k10, "k4": k4}
+
+
+def phase_vamana_pool_cell(torch, counted) -> dict:
+    """The pool build (SEMADB_VAMANA_BUILD=pool) on the 1M cell: recall@10 at
+    L = 75 (annbench) and at L = 40 on the same build, its seconds by stage
+    and the peak device memory."""
+    res, prof, launches, _, keep = _run_annbench(counted, VAMANA_POOL_ARGV, "pool-cell")
+    if res["recall@10"] < VAMANA_POOL_RECALL:
+        raise AssertionError(f"the pool build's recall@10 {res['recall@10']} at L = 75 is below {VAMANA_POOL_RECALL}")
+    if launches["K11"] <= 0 or launches["K10"] <= 0:
+        raise AssertionError(f"the pool cell did not run K11 and K10: {launches}")
+    idx, gt, queries = keep["index"], keep["ground_truth"], keep["queries"]
+    ids = np.empty((len(queries), LIMIT), np.int64)
+    for lo in range(0, len(queries), res["batch"]):
+        _, i = idx.search_batch(queries[lo : lo + res["batch"]], LIMIT, search_size=40)
+        ids[lo : lo + len(i)] = i - 2
+    r40 = float(np.mean([len(set(ids[j]) & set(gt[j])) / LIMIT for j in range(len(gt))]))
+    if r40 < VAMANA_POOL_L40_RECALL:
+        raise AssertionError(f"the pool build's recall@10 {r40} at L = 40 is below {VAMANA_POOL_L40_RECALL}")
+    split = res["build_split_s"]
+    log(f"[pool-cell] recall@10 {res['recall@10']:.4f} at L = 75, {r40:.4f} at L = 40; build {res['build_s']:.2f} s "
+        f"(k-means {split['kmeans_s']:.2f}, pools {split['pools_s']:.2f}, pass 1 {split['pass1_s']:.2f}, pass 2 "
+        f"{split.get('pass2.0_s', 0.0):.2f}, top-up {split['topup_s']:.3f}, lean {split['lean']}); peak device memory "
+        f"{res.get('peak_mem_gib', float('nan')):.2f} GiB; launches {launches}")
+    del keep
+    return {"res": res, "recall_l40": r40, "launches": launches}
+
+
+def phase_vamana_quant_http(torch, counted, device, seed: int, n_points: int = HTTP_QUANT_POINTS) -> dict:
+    """Three v2 vectorVamana collections over the port's node and HTTP
+    server, one shard each: a binary quantizer (hamming), a product
+    quantizer (8 x 256) and the user hamming metric on 0/1 vectors. Searches
+    and filtered searches against numpy (reranked distances f32 within 1e-5
+    relative, raw bit counts exact), deletes and updates, a flush, close and
+    reopen."""
+    import uuid
+
+    from semadb_tpu_torch.models import Point
+    from semadb_tpu_torch.ops.kernels import vamana_search
+    from semadb_tpu_torch.tools import dbpedia_bq as bq
+    from semadb_tpu_torch.tools.datasets import embedding_like
+
+    dim = HTTP_IVF_DIM
+    ds = embedding_like(n_points + HTTP_VAMANA_WRITES, dim, HTTP_QUANT_QUERIES, spread=0.5, seed=seed + 20)
+    rng = np.random.default_rng([seed, 20])
+    bits = rng.integers(0, 2, (n_points + HTTP_VAMANA_WRITES + HTTP_QUANT_QUERIES, dim)).astype(np.float32)
+    datasets = {"vbq": (ds.train[:n_points].copy(), ds.test, ds.train[n_points:]),
+                "vpq": (ds.train[:n_points].copy(), ds.test, ds.train[n_points:]),
+                "vham": (bits[:n_points].copy(), bits[-HTTP_QUANT_QUERIES:],
+                         bits[n_points : n_points + HTTP_VAMANA_WRITES])}
+    entries = {
+        "vbq": {"distanceMetric": "euclidean", "quantizer": {"type": "binary", "binary": {
+            "distanceMetric": "hamming", "triggerThreshold": 10000}}},
+        "vpq": {"distanceMetric": "euclidean", "quantizer": {"type": "product", "product": {
+            "numCentroids": 256, "numSubVectors": 8, "triggerThreshold": 10000}}},
+        "vham": {"distanceMetric": "hamming"},
+    }
+    ids = [str(uuid.UUID(bytes=rng.bytes(16), version=4)) for _ in range(n_points)]
+    row_of = {pid: i for i, pid in enumerate(ids)}
+    tags = [f"t{i % 4}" for i in range(n_points)]
+    order = rng.permutation(n_points)
+    deleted = order[:HTTP_VAMANA_WRITES]
+    moved = order[HTTP_VAMANA_WRITES : 2 * HTTP_VAMANA_WRITES]
+    live = np.ones(n_points, bool)
+    t1 = np.array([t == "t1" for t in tags])
+
+    def truth_dist(name, data, qv):
+        if name == "vham":
+            return (data.astype(bool) != (qv > 0.5)).sum(-1).astype(np.float64)
+        return ((data.astype(np.float64) - qv.astype(np.float64)) ** 2).sum(-1)
+
+    def check(name, rows, flt=None) -> float:
+        data, queries, _ = datasets[name]
+        hits = 0
+        for qv, row in zip(queries, rows):
+            d = truth_dist(name, data, qv)
+            ok = live.copy() if flt is None else live & flt
+            got = [row_of[pid] for pid, _ in row]
+            if any(not ok[r] for r in got):
+                raise AssertionError(f"{name}: a deleted or filtered-out point came back")
+            d[~ok] = np.inf
+            truth = set(np.argsort(d, kind="stable")[:LIMIT].tolist())
+            hits += len(truth & set(got))
+            for (_, dist), r in zip(row, got):
+                exact = name == "vham"
+                if (dist != d[r]) if exact else abs(dist - d[r]) > VAMANA_RTOL * max(1.0, d[r]):
+                    raise AssertionError(f"{name}: distance {dist} of a point at {d[r]}")
+        return hits / (LIMIT * len(rows))
+
+    def body(qv, flt=None):
+        out = {"query": {"property": "vec", "vectorVamana": {"vector": qv.tolist(), "operator": "near",
+                                                             "limit": LIMIT}}}
+        if flt is not None:
+            out["query"]["vectorVamana"]["filter"] = flt
+        return out
+
+    def searches(srv) -> dict:
+        flt = {"property": "tag", "string": {"value": "t1", "operator": "equals"}}
+        out = {}
+        for name, (_, queries, _) in datasets.items():
+            out[name] = [[(p["_id"], p["_distance"]) for p in bq.http_json(
+                srv.base, "POST", f"/{name}/points/search", body(qv))["points"]] for qv in queries]
+            out[name + "/filtered"] = [[(p["_id"], p["_distance"]) for p in bq.http_json(
+                srv.base, "POST", f"/{name}/points/search", body(qv, flt))["points"]] for qv in queries]
+        return out
+
+    def check_all(res, what) -> dict:
+        recall = {key: check(key.split("/")[0], rows, t1 if key.endswith("filtered") else None)
+                  for key, rows in res.items()}
+        # The bar holds the unfiltered BQ and PQ searches. A filtered walk
+        # admits only the seeds and the expanded members (search.go:27-51,
+        # the JAX package's search_filtered, held equal on the CPU): its
+        # recall on codes is reported, not held (0.87-0.90 at 50 queries on
+        # an H100); hamming ranks tie across many points
+        low = {key: r for key, r in recall.items()
+               if key in ("vbq", "vpq") and r < HTTP_QUANT_RECALL}
+        if low:
+            raise AssertionError(f"{what}: recall@10 {low} below {HTTP_QUANT_RECALL} (all: {recall})")
+        return recall
+
+    with tempfile.TemporaryDirectory(prefix="semadb_smoke_vamana_quant_") as root:
+        cfg = bq.slice_config(root)
+        _zero_counts(counted)
+        with bq.serving(cfg, device) as srv:
+            t0 = time.perf_counter()
+            cols = {}
+            for name, entry in entries.items():
+                schema = {"vec": {"type": "vectorVamana", "vectorVamana": {"vectorSize": dim, **entry}},
+                          "tag": {"type": "string", "string": {"caseSensitive": True}}}
+                bq.http_json(srv.base, "POST", "", {"id": name, "indexSchema": schema})
+                data = datasets[name][0]
+                bq.http_json(srv.base, "POST", f"/{name}/points", {"points": [
+                    {"_id": ids[i], "vec": data[i].tolist(), "tag": tags[i]} for i in range(1000)]})
+                # Fetched after the first insert made its shard, so that the
+                # rest go to that shard
+                cols[name] = col = srv.node.get_collection(bq.USER["X-User-Id"], name)
+                col.user_plan = srv.plan
+                for lo in range(1000, n_points, 5000):
+                    pts = [Point.from_map({"vec": data[i].tolist(), "tag": tags[i]}, uuid.UUID(ids[i]))
+                           for i in range(lo, min(lo + 5000, n_points))]
+                    failed = srv.node.insert_points(col, pts)
+                    assert failed == [], failed
+                if len(col.shard_ids) != 1:
+                    raise AssertionError(f"{name}: {len(col.shard_ids)} shards, not one")
+            ingest_s = time.perf_counter() - t0
+            fitted = {name: srv.node.shard_manager.do_with_shard(
+                col, col.shard_ids[0], lambda s: next(iter(s.device_indices.values())).store.fitted)
+                for name, col in cols.items()}
+            if not all(fitted.values()):
+                raise AssertionError(f"a store is not fitted after {n_points} points: {fitted}")
+            t0 = time.perf_counter()
+            before = searches(srv)
+            search_s = time.perf_counter() - t0
+            recall = check_all(before, "before the writes")
+            t0 = time.perf_counter()
+            for name in entries:
+                for lo in range(0, len(deleted), 100):
+                    bq.http_json(srv.base, "DELETE", f"/{name}/points",
+                                 {"ids": [ids[i] for i in deleted[lo : lo + 100]]})
+                moved_to = datasets[name][2]
+                for lo in range(0, len(moved), 100):
+                    rows = list(enumerate(moved[lo : lo + 100], start=lo))
+                    bq.http_json(srv.base, "PUT", f"/{name}/points", {"points": [
+                        {"_id": ids[i], "vec": moved_to[j].tolist()} for j, i in rows]})
+                datasets[name][0][moved] = moved_to
+            live[deleted] = False
+            writes_s = time.perf_counter() - t0
+            after = searches(srv)
+            recall_after = check_all(after, "after the writes")
+            for name in entries:
+                moved_to = datasets[name][2]
+                for j, i in enumerate(moved[:20]):
+                    top = bq.http_json(srv.base, "POST", f"/{name}/points/search", {"query": {
+                        "property": "vec", "vectorVamana": {"vector": moved_to[j].tolist(), "operator": "near",
+                                                            "limit": 1}}})["points"][0]
+                    if top["_id"] != ids[i] or top["_distance"] != 0:
+                        raise AssertionError(f"{name}: an updated point does not find itself: {top}")
+            chunks = {name: sum(srv.node.shard_manager.do_with_shard(col, sid, lambda s: s.flush())
+                                for sid in col.shard_ids) for name, col in cols.items()}
+        launches = {nm: mod.LAUNCHES for nm, mod in counted}
+        by_route = dict(vamana_search.LAUNCHES_BY)
+        with bq.serving(cfg, device) as srv:
+            reopened = searches(srv)
+        if reopened != after:
+            bad = [key for key in after if reopened[key] != after[key]]
+            raise AssertionError(f"after close and reopen the searches {bad} answer otherwise")
+    log(f"[vamana-quant-http] {n_points} points of {dim}-d into three v2 vectorVamana collections (BQ hamming, PQ "
+        f"8 x 256, the hamming metric on 0/1 vectors; 1,000 each over HTTP) in {ingest_s:.2f} s, stores fitted; "
+        f"{HTTP_QUANT_QUERIES} searches and {HTTP_QUANT_QUERIES} filtered of each: recall@10 {recall} against numpy (BQ and PQ reranked, f32 within 1e-5; "
+        f"hamming bit counts exact) in {search_s:.2f} s; {HTTP_VAMANA_WRITES} deletes and {HTTP_VAMANA_WRITES} "
+        f"updates a collection in {writes_s:.2f} s: recall@10 {recall_after}, no deleted id back, 20 updated points "
+        f"each find themselves at 0; the flush wrote {chunks} chunks; after close and reopen every search answers "
+        f"the same; launches {launches}, K10 by route {by_route}")
+    if by_route.get("bit", 0) <= 0 or by_route.get("adc", 0) <= 0 or launches["K4"] <= 0:
+        raise AssertionError(f"the quantized HTTP phase did not run K10's bit and ADC routes and K4: {launches} "
+                             f"{by_route}")
+    return {"recall": recall, "recall_after": recall_after, "launches": launches, "by_route": by_route}
+
+
+def _k10_route_row(cell: dict, qhttp: dict, vcodes: dict) -> dict:
+    """The kernels line's row of one of K10's quantized routes, from its
+    cell's run (``cell``) and the HTTP phase's launches."""
+    route = "bit" if "bit" in cell["by_route"] else "adc"
+    k10 = cell["k10"]
+    return {
+        "name": (f"K10 vamana_beam_search, the {route} route ({'packed bits, hamming/jaccard, a lane a row, a whole '
+                 'row a 16-byte load' if route == 'bit' else 'PQ codes through ADC tables staged in shared memory, '
+                 'a lane a row'})"),
+        "route": "cuda",
+        "source": "semadb_tpu_torch/csrc/vamana_search.cu",
+        "replaces": "semadb_tpu/ops/distance.py:154" if route == "bit" else "semadb_tpu/vectorstore/store.py:316",
+        "launches": cell["by_route"][route],
+        "max_abs_err": k10["max_abs_err"] if route == "bit" else max(k10["max_abs_err"], vcodes["adc_real_err"]),
+        **{key: k10[key] for key in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library": LIBRARY_NONE_K10_CODES,
+        "shape": k10["shape"] + f"; device time per call, mean of {VAMANA_TIMED_RUNS}",
+        "bound_bytes": k10["bytes"],
+        **{key: k10[key] for key in ("distinct_rows_scored", "rows_scored", "distinct_nodes_expanded",
+                                     "nodes_expanded", "hops_per_query")},
+        "launches_http": qhttp["by_route"].get(route, 0),
+        "checked_calls": vcodes["calls"],
+        "cell": {key: cell["res"][key] for key in ("recall@10", "qps", "build_s", "search_size") if key in cell["res"]},
+    }
 
 
 def _phase(name: str, fn, *args, **kwargs):
@@ -2809,6 +3236,13 @@ def main() -> int:
     vcell = _phase("15 the Vamana cell", phase_vamana_cell, torch, counted, vamana_search, vamana_prune,
                    vamana_baseline)
     vhttp = _phase("16 v1 and v2 Vamana collections over HTTP", phase_vamana_http, torch, counted, device, args.seed)
+    vcodes = _phase("17 K10's bit and ADC routes against their plain versions", phase_vamana_code_kernels, torch,
+                    vamana_search, device)
+    bqv = _phase("18 the BQ Vamana cell", phase_vamana_quant_cell, torch, counted, vamana_search, ivf_rerank, "bq")
+    pqv = _phase("19 the PQ Vamana cell", phase_vamana_quant_cell, torch, counted, vamana_search, ivf_rerank, "pq")
+    pool = _phase("20 the pool build", phase_vamana_pool_cell, torch, counted)
+    qhttp = _phase("21 quantized vectorVamana collections over HTTP", phase_vamana_quant_http, torch, counted, device,
+                   args.seed)
     log(f"[profiler] times reported by CUDA events after every window lost its kernels (P2): "
         f"{len(EVENT_FALLBACKS)} {EVENT_FALLBACKS}")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
@@ -2970,7 +3404,24 @@ def main() -> int:
                                                                                     vcell["k11"] else ())},
         "launches_by_shape": vcell["launches_by_shape"]["K11"],
         "launches_http": vhttp["launches"]["K11"],
+        "launches_pool_cell": pool["launches"]["K11"],
         "checked_calls": vker["k11_calls"],
+    }, *(_k10_route_row(cell, qhttp, vcodes) for cell in (bqv, pqv)), {
+        "name": "K4 ivf_exact_rerank at the quantized Vamana walk's f32 rerank (the list and the ring, dedup)",
+        "route": "cuda",
+        "source": "semadb_tpu_torch/csrc/ivf_rerank.cu",
+        "replaces": "semadb_tpu/index/vamana/search.py:270",
+        "launches": bqv["launches"]["K4"],
+        **{key: bqv["k4"][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms")},
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library": LIBRARY_NONE_K4,
+        "shape": bqv["k4"]["shape"] + f"; device time per call, mean of {IVF_TIMED_RUNS}",
+        "bound_bytes": bqv["k4"]["bytes"],
+        "distinct_rows": bqv["k4"]["distinct_rows"],
+        "pq_cell": {key: v for key, v in pqv["k4"].items()},
+        "launches_pq_cell": pqv["launches"]["K4"],
+        "launches_http": qhttp["launches"]["K4"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

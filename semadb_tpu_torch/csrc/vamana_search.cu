@@ -38,6 +38,25 @@
 //     meters of _haversine_pair with each product and sum rounded as PyTorch's
 //     elementwise kernels round them (no contraction into FMAs).
 //
+// Scoring routes (the JAX _make_gd, search.py:47-65), one template instance
+// of the same walk each; the list, the ring, the merge and the (d, id) keys
+// are the same code for all three:
+//   - f32: the rows above (semadb_vamana_beam_search);
+//   - bit: packed codes i32[cap, W] against the query's code i32[W]
+//     (gather_bit_distance, ops/distance.py:154-171): hamming the popcount
+//     of the xor, jaccard 1 - inter / union by one IEEE division, 0 where
+//     union == 0. A lane scores a row, at W = 4 (D = 128) in one 16-byte
+//     load, so a warp has 32 rows in flight where the f32 route has 8; the
+//     query's first 4 words sit in registers;
+//   - ADC: PQ codes u8[cap, M] through the query's table f32[M, K]
+//     (pq_gather_distance, vectorstore/store.py:316-326), the M terms summed
+//     in the order 0..M-1; a lane scores a row, 8 codes a load. The table is
+//     staged in shared memory once a walk when it holds at most
+//     kAdcStageBytes (32 KB: M = 32 at K = 256), else read through L2 (e.g.
+//     D = 1536, M = 96): a route chosen by size.
+// (semadb_vamana_beam_search_codes.) Quantized distances tie constantly
+// across ids; the (d, id) key orders them, as the JAX program's 2-key sort.
+//
 // What bounds it on the H100: bytes. A hop reads W adjacency rows (4 R bytes
 // each) and scores up to W*R rows of 4 D bytes with D multiply-adds each,
 // about 0.5 operations a byte, far below the card's ratio. The least traffic
@@ -92,7 +111,10 @@
 //      tests/test_torch_vamana_models.py holds equal to merge_sorted
 //      (k10_merge_model).
 // Distances stay f32 (no bf16, no TF32). The order of a row's sum is the
-// team's: each lane sums its own elements, then the 8 lanes' partials.
+// team's: each lane sums its own elements, then the 8 lanes' partials. The
+// bound of the quantized routes is the same count with a code row's bytes
+// (16 at D = 128, M at ADC) in place of 4 D, and the queries' codes or
+// tables in place of the queries.
 // L <= 512, W * R <= 512, W <= L, L + S <= 2048, D <= 4096, ids in
 // [-1, 2^31 - 2].
 
@@ -120,6 +142,7 @@ constexpr int kMaxWR = 512;
 constexpr int kMaxM = 2048;
 constexpr int kMaxD = 4096;
 constexpr long long kSmemBudget = 232448;  // an H100 block's dynamic shared memory
+constexpr long long kAdcStageBytes = 32768;  // the largest ADC table staged in shared memory (m = 32 at k = 256)
 constexpr u64 kHole = 0xFF80000000000000ull;  // the key of (inf, -1)
 constexpr u64 kPad = ~0ull;                    // sorts after every key
 
@@ -391,6 +414,136 @@ __device__ __forceinline__ void score_rows(int metric, const float* __restrict__
   else score_inner<U, VEC>(vectors, D, q, row, ok, tl, metric == kCosine, dist);
 }
 
+// ---- The quantized routes. A walk is one template instance a route
+// (ROUTE below): the f32 route scores with a team of kTeam lanes a row
+// (score_rows above, the walk's first route, unchanged); the bit and ADC routes
+// with one lane a row.
+
+enum Route { kRouteF32 = 0, kRouteBit = 1, kRouteAdc = 2 };
+
+template <int ROUTE>
+__host__ __device__ constexpr int route_lanes() {
+  return ROUTE == kRouteF32 ? kTeam : 1;
+}
+
+// Packed bits i32[cap, words], one lane a row: with vec (words % 4 == 0 on
+// the 16-byte grid) a row comes in 16-byte loads, a whole row at D <= 128,
+// and the query's first 4 words sit in registers (q0); else word by word
+// (the query's words from shared memory). Hamming: the popcount of the xor,
+// an exact f32. Jaccard: 1 - inter / union by one IEEE division, 0 where
+// union == 0 (gather_bit_distance).
+template <int U>
+__device__ __forceinline__ void score_bits(const int32_t* __restrict__ codes, int words, bool vec, bool jaccard,
+                                           const int* q, const int4& q0, const long long (&row)[U],
+                                           const bool (&ok)[U], float (&dist)[U]) {
+  int a[U], o[U];  // hamming: xor bits; jaccard: and bits, or bits
+#pragma unroll
+  for (int u = 0; u < U; ++u) a[u] = o[u] = 0;
+  if (vec) {
+    for (int w0 = 0; w0 < words; w0 += 4) {
+      int4 x[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        x[u] = ok[u] ? __ldg(reinterpret_cast<const int4*>(codes + row[u] * words + w0)) : make_int4(0, 0, 0, 0);
+      const int4 qq = w0 == 0 ? q0 : *reinterpret_cast<const int4*>(q + w0);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (jaccard) {
+          a[u] += __popc(x[u].x & qq.x) + __popc(x[u].y & qq.y) + __popc(x[u].z & qq.z) + __popc(x[u].w & qq.w);
+          o[u] += __popc(x[u].x | qq.x) + __popc(x[u].y | qq.y) + __popc(x[u].z | qq.z) + __popc(x[u].w | qq.w);
+        } else {
+          a[u] += __popc(x[u].x ^ qq.x) + __popc(x[u].y ^ qq.y) + __popc(x[u].z ^ qq.z) + __popc(x[u].w ^ qq.w);
+        }
+      }
+    }
+  } else {
+    for (int w = 0; w < words; ++w) {
+      int x[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) x[u] = ok[u] ? __ldg(codes + row[u] * words + w) : 0;
+      const int qq = q[w];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (jaccard) {
+          a[u] += __popc(x[u] & qq);
+          o[u] += __popc(x[u] | qq);
+        } else {
+          a[u] += __popc(x[u] ^ qq);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    dist[u] = !jaccard ? (float)a[u] : (o[u] == 0 ? 0.0f : __fsub_rn(1.0f, __fdiv_rn((float)a[u], (float)o[u])));
+}
+
+// PQ codes u8[cap, m] against the query's ADC table f32[m, k], one lane a
+// row: with vec (m % 8 == 0 on the 8-byte grid) 8 codes a load, else one;
+// the m terms summed in the order 0..m-1. The table is the query's copy in
+// shared memory, or its rows in device memory (through L2) when it is too
+// large to stage (kAdcStageBytes).
+template <int U>
+__device__ __forceinline__ void score_adc(const uint8_t* __restrict__ codes, int m, int k, bool vec,
+                                          const float* table, const long long (&row)[U], const bool (&ok)[U],
+                                          float (&dist)[U]) {
+  float acc[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) acc[u] = 0.0f;
+  if (vec) {
+    for (int m0 = 0; m0 < m; m0 += 8) {
+      uint2 x[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        x[u] = ok[u] ? __ldg(reinterpret_cast<const uint2*>(codes + row[u] * m + m0)) : make_uint2(0u, 0u);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const unsigned c = ((j < 4 ? x[u].x : x[u].y) >> (8 * (j & 3))) & 0xffu;
+          acc[u] = __fadd_rn(acc[u], table[(m0 + j) * k + c]);
+        }
+      }
+    }
+  } else {
+    for (int j = 0; j < m; ++j) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const unsigned c = ok[u] ? __ldg(codes + row[u] * m + j) : 0u;
+        acc[u] = __fadd_rn(acc[u], table[j * k + c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) dist[u] = acc[u];
+}
+
+// The quantized routes' operands; the f32 route takes none of them.
+struct Codes {
+  const void* __restrict__ codes;  // bit: i32[cap, width]; ADC: u8[cap, width]
+  int width;                        // a code row's words (bit) or bytes (ADC)
+  int k;                            // ADC: centroids a subvector
+  int vec;                          // the code rows' vector loads
+  int jaccard;                      // bit: jaccard, else hamming
+  int stage;                        // ADC: the table staged in shared memory
+};
+
+// U rows scored by the route; lane tl of the row's team of route_lanes.
+template <int ROUTE, int U, bool VEC>
+__device__ __forceinline__ void score_route(int metric, const float* __restrict__ vectors, int D, const float* q,
+                                            const Codes& cq, const float* table, const long long (&row)[U],
+                                            const bool (&ok)[U], int tl, float (&dist)[U]) {
+  if constexpr (ROUTE == kRouteF32) {
+    score_rows<U, VEC>(metric, vectors, D, q, row, ok, tl, dist);
+  } else if constexpr (ROUTE == kRouteBit) {
+    const int* qi = reinterpret_cast<const int*>(q);
+    score_bits<U>(static_cast<const int32_t*>(cq.codes), cq.width, cq.vec != 0, cq.jaccard != 0, qi,
+                  *reinterpret_cast<const int4*>(qi), row, ok, dist);
+  } else {
+    score_adc<U>(static_cast<const uint8_t*>(cq.codes), cq.width, cq.k, cq.vec != 0, table, row, ok, dist);
+  }
+}
+
 // ---- One query's shared memory
 
 struct Layout {
@@ -409,13 +562,14 @@ __host__ __device__ inline int take(int& off, int bytes) {
   return at;
 }
 
-// Byte offsets of one query's arrays (every one 16-byte aligned), and their sum.
-__host__ __device__ inline Layout layout_of(int D, int L, int W, int R, int S, int track) {
+// Byte offsets of one query's arrays (every one 16-byte aligned), and their
+// sum. qwords: the 4-byte words of the query's staged form (query_words).
+__host__ __device__ inline Layout layout_of(int qwords, int L, int W, int R, int S, int track) {
   Layout y;
   int off = 0;
   const int V = ((2 * L + W - 1) / W) * W;
   const int cap = pow2_at_least(W * R > S ? W * R : S);
-  y.q = take(off, 4 * ((D + 3) & ~3));
+  y.q = take(off, 4 * qwords);
   y.lk0 = take(off, 8 * L);
   y.lk1 = take(off, 8 * L);
   y.nk = take(off, 8 * L);
@@ -431,6 +585,14 @@ __host__ __device__ inline Layout layout_of(int D, int L, int W, int R, int S, i
   y.misc = take(off, 4 * 8);
   y.bytes = off;
   return y;
+}
+
+// The query's staged form in shared memory, in 4-byte words: the f32 route's
+// D floats and the bit route's code, each padded to a multiple of 4; the ADC
+// route's table of m*k floats, or nothing when it is read through L2.
+__host__ __device__ inline int query_words(int route, int width, int k, bool stage) {
+  if (route == kRouteAdc) return stage ? width * k : 0;
+  return (width + 3) & ~3;
 }
 
 enum Misc { kSurvivors = 0, kNonHole = 1, kSel = 2 };
@@ -618,12 +780,14 @@ __device__ int hole_cut(State& s, int L, int ns, const Team<NW>& t) {
 
 // Score slots [0, n_slots) (slot -> id by ids_of; NIL slots are holes) and
 // keep the survivors (key < bound) in sv; counts real slots in misc.
-template <int NW, bool VEC, typename IdOf>
+template <int NW, int ROUTE, bool VEC, typename IdOf>
 __device__ void score_slots(State& s, const float* __restrict__ vectors, long long cap, int D, int metric,
-                            int n_slots, u64 bound, IdOf ids_of, const Team<NW>& t) {
+                            const Codes& cq, const float* table, int n_slots, u64 bound, IdOf ids_of,
+                            const Team<NW>& t) {
   constexpr int U = kRowsInFlight;
-  constexpr int RT = Team<NW>::kThreads / kTeam;
-  const int g = t.tid / kTeam, tl = t.tid % kTeam;
+  constexpr int LANES = route_lanes<ROUTE>();
+  constexpr int RT = Team<NW>::kThreads / LANES;
+  const int g = t.tid / LANES, tl = t.tid % LANES;
   int real = 0;
   for (int base = 0; base < n_slots; base += RT * U) {
     int id[U];
@@ -637,7 +801,7 @@ __device__ void score_slots(State& s, const float* __restrict__ vectors, long lo
       row[u] = id[u] < 0 ? 0 : (id[u] >= cap ? cap - 1 : id[u]);
     }
     float dist[U];
-    score_rows<U, VEC>(metric, vectors, D, s.q, row, ok, tl, dist);
+    score_route<ROUTE, U, VEC>(metric, vectors, D, s.q, cq, table, row, ok, tl, dist);
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const u64 key = key_of(dist[u], id[u]);
@@ -667,13 +831,16 @@ constexpr int min_blocks() {
   return NW == 1 ? kWarpMinBlocks : (NW == 4 ? 8 : 4);  // 64 registers a thread at 8 and 4
 }
 
-template <int NW, bool VEC>
+// One instance a (team size, route, f32 load width). queries: the f32
+// route's f32[B, D], the bit route's query codes i32[B, width], the ADC
+// route's tables f32[B, width, k]; cq the quantized routes' operands.
+template <int NW, int ROUTE, bool VEC>
 __global__ void __launch_bounds__(block_threads<NW>(), min_blocks<NW>()) vamana_beam_search_kernel(
     const float* __restrict__ vectors, long long cap, int D, const int32_t* __restrict__ adjacency, int R,
-    const float* __restrict__ queries, int B, const int32_t* __restrict__ seeds, int S, int L, int W, int V,
+    const void* __restrict__ queries, int B, const int32_t* __restrict__ seeds, int S, int L, int W, int V,
     int max_hops, int metric, int track_visited, int team_bytes, float* __restrict__ cand_d,
     int32_t* __restrict__ cand_i, float* __restrict__ vis_d, int32_t* __restrict__ vis_i,
-    int32_t* __restrict__ hops_out, int32_t* __restrict__ counts_out) {
+    int32_t* __restrict__ hops_out, int32_t* __restrict__ counts_out, const Codes cq) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int T = Team<NW>::kThreads;
   Team<NW> t;
@@ -683,7 +850,9 @@ __global__ void __launch_bounds__(block_threads<NW>(), min_blocks<NW>()) vamana_
   const int b = blockIdx.x * (blockDim.x / T) + threadIdx.x / T;
   if (b >= B) return;  // a whole team (a warp: NW == 1 only has teams past B)
   const bool track = track_visited != 0;
-  const Layout y = layout_of(D, L, W, R, S, track_visited);
+  const int qw = ROUTE == kRouteF32 ? query_words(kRouteF32, D, 0, false)
+                                    : query_words(ROUTE, cq.width, cq.k, cq.stage != 0);
+  const Layout y = layout_of(qw, L, W, R, S, track_visited);
   unsigned char* base = smem_raw + (long long)(threadIdx.x / T) * team_bytes;
   State s;
   s.q = reinterpret_cast<float*>(base + y.q);
@@ -701,9 +870,30 @@ __global__ void __launch_bounds__(block_threads<NW>(), min_blocks<NW>()) vamana_
   s.wsum = reinterpret_cast<int*>(base + y.wsum);
   s.misc = reinterpret_cast<int*>(base + y.misc);
   const int Vp = pow2_at_least(V);
-  const float* qg = queries + (long long)b * D;
-  const int Dp = (D + 3) & ~3;
-  for (int d = t.tid; d < Dp; d += T) s.q[d] = d < D ? qg[d] : 0.0f;
+  // The query's staged form: its f32 row, its code, or its ADC table
+  const float* table = nullptr;
+  if constexpr (ROUTE == kRouteF32) {
+    const float* qg = static_cast<const float*>(queries) + (long long)b * D;
+    for (int d = t.tid; d < qw; d += T) s.q[d] = d < D ? qg[d] : 0.0f;
+  } else if constexpr (ROUTE == kRouteBit) {
+    const int32_t* qg = static_cast<const int32_t*>(queries) + (long long)b * cq.width;
+    int* qi = reinterpret_cast<int*>(s.q);
+    for (int w = t.tid; w < qw; w += T) qi[w] = w < cq.width ? qg[w] : 0;
+  } else {
+    const long long mk = (long long)cq.width * cq.k;
+    const float* tg = static_cast<const float*>(queries) + (long long)b * mk;
+    table = tg;
+    if (cq.stage) {
+      table = s.q;
+      if ((mk & 3) == 0) {
+        const float4* t4 = reinterpret_cast<const float4*>(tg);
+        float4* s4 = reinterpret_cast<float4*>(s.q);
+        for (int i = t.tid; i < (int)(mk >> 2); i += T) s4[i] = __ldg(t4 + i);
+      } else {
+        for (int i = t.tid; i < (int)mk; i += T) s.q[i] = __ldg(tg + i);
+      }
+    }
+  }
   for (int p = t.tid; p < L; p += T) {
     s.lk[p] = kHole;
     s.le[p] = 0;
@@ -712,12 +902,13 @@ __global__ void __launch_bounds__(block_threads<NW>(), min_blocks<NW>()) vamana_
     for (int p = t.tid; p < Vp; p += T) s.ring[p] = p < V ? kHole : kPad;
   if (t.tid < 8) s.misc[t.tid] = 0;
   t.sync();
-  // The start node: the first 8 lanes score it (the whole first warp calls)
+  // The start node: the first team of lanes scores it (the whole first warp calls)
   if (t.warp == 0) {
+    constexpr int LANES = route_lanes<ROUTE>();
     const long long row[1] = {kStartId < cap ? kStartId : cap - 1};
-    const bool ok[1] = {t.lane < kTeam};
+    const bool ok[1] = {t.lane < LANES};
     float dist[1];
-    score_rows<1, VEC>(metric, vectors, D, s.q, row, ok, t.lane % kTeam, dist);
+    score_route<ROUTE, 1, VEC>(metric, vectors, D, s.q, cq, table, row, ok, t.lane % LANES, dist);
     if (t.lane == 0) s.lk[0] = key_of(dist[0], kStartId);
   }
   t.sync();
@@ -725,8 +916,8 @@ __global__ void __launch_bounds__(block_threads<NW>(), min_blocks<NW>()) vamana_
   if (seeds != nullptr && S > 0) {
     const int32_t* sg = seeds + (long long)b * S;
     const u64 bound = survivor_bound(s, L, true, t);
-    score_slots<NW, VEC>(s, vectors, cap, D, metric, S, bound,
-                         [&](int slot) { const int id = sg[slot]; return id == kStartId ? kNil : id; }, t);
+    score_slots<NW, ROUTE, VEC>(s, vectors, cap, D, metric, cq, table, S, bound,
+                                [&](int slot) { const int id = sg[slot]; return id == kStartId ? kNil : id; }, t);
     t.sync();
     const int ns = s.misc[kSurvivors], real = s.misc[kNonHole];
     scored += real;
@@ -765,14 +956,14 @@ __global__ void __launch_bounds__(block_threads<NW>(), min_blocks<NW>()) vamana_
     expanded += nsel;
     const u64 bound = survivor_bound(s, L, track, t);
     const float inv_r = 1.0f / R;  // slot / R exactly: slot + 0.5 lies 0.5 / R from a multiple of R
-    score_slots<NW, VEC>(s, vectors, cap, D, metric, nsel * R, bound,
-                         [&](int slot) {
-                           const int w = __float2int_rz((slot + 0.5f) * inv_r);
-                           const int c = s.cur[w];
-                           const long long row = c < 0 ? 0 : (c >= cap ? cap - 1 : c);
-                           return (int)__ldg(adjacency + row * R + (slot - w * R));
-                         },
-                         t);
+    score_slots<NW, ROUTE, VEC>(s, vectors, cap, D, metric, cq, table, nsel * R, bound,
+                                [&](int slot) {
+                                  const int w = __float2int_rz((slot + 0.5f) * inv_r);
+                                  const int c = s.cur[w];
+                                  const long long row = c < 0 ? 0 : (c >= cap ? cap - 1 : c);
+                                  return (int)__ldg(adjacency + row * R + (slot - w * R));
+                                },
+                                t);
     t.sync();
     int ns = s.misc[kSurvivors];
     const int real = s.misc[kNonHole];
@@ -818,12 +1009,13 @@ struct Geometry {
 // Warps a query and queries a block: one warp a query where a hop brings at most kWarpMaxNew new
 // entries (seeds included), kWarpQueries a block as far as shared memory
 // allows; else a block a query, of 8 warps for a batch of at most
-// kSmallBatch queries and 4 for a larger one.
-Geometry pick_geometry(int B, int L, int W, int R, int D, int S, int track) {
+// kSmallBatch queries and 4 for a larger one. The same rule for every route;
+// qwords is the route's staged query (query_words).
+Geometry pick_geometry(int B, int L, int W, int R, int qwords, int S, int track) {
   Geometry g;
   const int most_new = W * R > S ? W * R : S;
   g.nw = most_new <= kWarpMaxNew ? 1 : (B <= kSmallBatch ? 8 : 4);
-  g.team_bytes = layout_of(D, L, W, R, S, track).bytes;
+  g.team_bytes = layout_of(qwords, L, W, R, S, track).bytes;
   g.qpb = 1;
   if (g.nw == 1) {
     const long long fit = kSmemBudget / g.team_bytes;
@@ -832,20 +1024,75 @@ Geometry pick_geometry(int B, int L, int W, int R, int D, int S, int track) {
   return g;
 }
 
-template <int NW, bool VEC>
-cudaError_t launch_as(const Geometry& g, const float* vectors, long long cap, int D, const int32_t* adjacency, int R,
-                      const float* queries, int B, const int32_t* seeds, int S, int L, int W, int V, int max_hops,
-                      int metric, int track, float* cand_d, int32_t* cand_i, float* vis_d, int32_t* vis_i,
-                      int32_t* hops, int32_t* counts, cudaStream_t stream) {
+// A launch's operands, as the kernel takes them.
+struct Walk {
+  const float* vectors;
+  long long cap;
+  int D;
+  const int32_t* adjacency;
+  int R;
+  const void* queries;
+  int B;
+  const int32_t* seeds;
+  int S, L, W, V, max_hops, metric, track;
+  float* cand_d;
+  int32_t* cand_i;
+  float* vis_d;
+  int32_t* vis_i;
+  int32_t* hops;
+  int32_t* counts;
+  Codes cq;
+};
+
+template <int NW, int ROUTE, bool VEC>
+cudaError_t launch_as(const Geometry& g, const Walk& a, cudaStream_t stream) {
   const int smem = g.team_bytes * g.qpb;
-  cudaError_t err = cudaFuncSetAttribute(vamana_beam_search_kernel<NW, VEC>,
+  cudaError_t err = cudaFuncSetAttribute(vamana_beam_search_kernel<NW, ROUTE, VEC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int blocks = (B + g.qpb - 1) / g.qpb;
-  vamana_beam_search_kernel<NW, VEC><<<blocks, g.qpb * NW * 32, smem, stream>>>(
-      vectors, cap, D, adjacency, R, queries, B, seeds, S, L, W, V, max_hops, metric, track, g.team_bytes, cand_d,
-      cand_i, vis_d, vis_i, hops, counts);
+  const int blocks = (a.B + g.qpb - 1) / g.qpb;
+  vamana_beam_search_kernel<NW, ROUTE, VEC><<<blocks, g.qpb * NW * 32, smem, stream>>>(
+      a.vectors, a.cap, a.D, a.adjacency, a.R, a.queries, a.B, a.seeds, a.S, a.L, a.W, a.V, a.max_hops, a.metric,
+      a.track, g.team_bytes, a.cand_d, a.cand_i, a.vis_d, a.vis_i, a.hops, a.counts, a.cq);
   return cudaGetLastError();
+}
+
+template <int ROUTE, bool VEC>
+cudaError_t launch_route(const Geometry& g, const Walk& a, cudaStream_t stream) {
+  if (g.nw == 1) return launch_as<1, ROUTE, VEC>(g, a, stream);
+  if (g.nw == 4) return launch_as<4, ROUTE, VEC>(g, a, stream);
+  return launch_as<8, ROUTE, VEC>(g, a, stream);
+}
+
+// The checks shared by both entry points (the walk's sizes).
+bool walk_sizes_ok(long long cap, int R, int B, int S, int L, int W) {
+  return cap >= 1 && cap <= 0x7ffffffeLL && R >= 1 && B >= 1 && L >= 1 && L <= kMaxL && W >= 1 && W <= L &&
+         W * R <= kMaxWR && S >= 0 && L + S <= kMaxM;
+}
+
+Walk walk_of(long long cap, const void* adjacency, int R, const void* queries, int B, const void* seeds, int S,
+             int L, int W, int max_hops, int track_visited, void* cand_d, void* cand_i, void* vis_d, void* vis_i,
+             void* hops, void* counts) {
+  Walk a{};
+  a.cap = cap;
+  a.adjacency = static_cast<const int32_t*>(adjacency);
+  a.R = R;
+  a.queries = queries;
+  a.B = B;
+  a.seeds = static_cast<const int32_t*>(seeds);
+  a.S = S;
+  a.L = L;
+  a.W = W;
+  a.V = ((2 * L + W - 1) / W) * W;
+  a.max_hops = max_hops;
+  a.track = track_visited != 0;
+  a.cand_d = static_cast<float*>(cand_d);
+  a.cand_i = static_cast<int32_t*>(cand_i);
+  a.vis_d = static_cast<float*>(vis_d);
+  a.vis_i = static_cast<int32_t*>(vis_i);
+  a.hops = static_cast<int32_t*>(hops);
+  a.counts = static_cast<int32_t*>(counts);
+  return a;
 }
 
 }  // namespace
@@ -862,34 +1109,59 @@ int semadb_vamana_beam_search(const void* vectors, long long cap, int D, const v
                               int max_hops, int metric, int track_visited, void* cand_d,
                               void* cand_i, void* vis_d, void* vis_i, void* hops, void* counts, void* stream) {
   const int V = ((2 * L + W - 1) / W) * W;
-  if (cap < 1 || cap > 0x7ffffffeLL || D < 1 || D > kMaxD || R < 1 || B < 1 || L < 1 || L > kMaxL || W < 1 ||
-      W > L || W * R > kMaxWR || S < 0 || L + S > kMaxM || M > kMaxM || M < L + W * R || M < L + S || M < V ||
-      (M & (M - 1)) != 0 || metric < 0 || metric > 3 || (metric == kHaversine && D != 2)) {
+  if (!walk_sizes_ok(cap, R, B, S, L, W) || D < 1 || D > kMaxD || M > kMaxM || M < L + W * R || M < L + S ||
+      M < V || (M & (M - 1)) != 0 || metric < 0 || metric > 3 || (metric == kHaversine && D != 2)) {
     return (int)cudaErrorInvalidValue;
   }
   const int track = track_visited != 0;
-  const Geometry g = pick_geometry(B, L, W, R, D, S, track);
+  const Geometry g = pick_geometry(B, L, W, R, query_words(kRouteF32, D, 0, false), S, track);
   if ((long long)g.team_bytes * g.qpb > kSmemBudget) return (int)cudaErrorInvalidValue;
+  Walk a = walk_of(cap, adjacency, R, queries, B, seeds, S, L, W, max_hops, track, cand_d, cand_i, vis_d, vis_i,
+                   hops, counts);
+  a.vectors = static_cast<const float*>(vectors);
+  a.D = D;
+  a.metric = metric;
   const bool vec = D % 4 == 0 && (reinterpret_cast<uintptr_t>(vectors) & 15) == 0;
-  const float* v = static_cast<const float*>(vectors);
-  const int32_t* a = static_cast<const int32_t*>(adjacency);
-  const float* q = static_cast<const float*>(queries);
-  const int32_t* sd = static_cast<const int32_t*>(seeds);
-  float* cd = static_cast<float*>(cand_d);
-  int32_t* ci = static_cast<int32_t*>(cand_i);
-  float* vd = static_cast<float*>(vis_d);
-  int32_t* vi = static_cast<int32_t*>(vis_i);
-  int32_t* h = static_cast<int32_t*>(hops);
-  int32_t* c = static_cast<int32_t*>(counts);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-#define K10_LAUNCH(NW, VEC) \
-  launch_as<NW, VEC>(g, v, cap, D, a, R, q, B, sd, S, L, W, V, max_hops, metric, track, cd, ci, vd, vi, h, c, st)
-  if (g.nw == 1) err = vec ? K10_LAUNCH(1, true) : K10_LAUNCH(1, false);
-  else if (g.nw == 4) err = vec ? K10_LAUNCH(4, true) : K10_LAUNCH(4, false);
-  else err = vec ? K10_LAUNCH(8, true) : K10_LAUNCH(8, false);
-#undef K10_LAUNCH
-  return (int)err;
+  return (int)(vec ? launch_route<kRouteF32, true>(g, a, st) : launch_route<kRouteF32, false>(g, a, st));
+}
+
+// The quantized walk. route 1 (bits): codes i32[cap, width] packed bits,
+// prepared i32[B, width] the queries' codes, bit_metric 0 hamming, 1
+// jaccard. route 2 (ADC): codes u8[cap, width] PQ codes, prepared f32[B,
+// width, k] the queries' tables, staged in shared memory when a table holds
+// at most kAdcStageBytes and the team's memory fits, else read through L2.
+// The rest as semadb_vamana_beam_search.
+int semadb_vamana_beam_search_codes(const void* codes, long long cap, int route, int width, int k, int bit_metric,
+                                    const void* adjacency, int R, const void* prepared, int B, const void* seeds,
+                                    int S, int L, int W, int max_hops, int track_visited, void* cand_d,
+                                    void* cand_i, void* vis_d, void* vis_i, void* hops, void* counts,
+                                    void* stream) {
+  if (!walk_sizes_ok(cap, R, B, S, L, W) || width < 1 || width > kMaxD ||
+      (route == kRouteBit && (bit_metric < 0 || bit_metric > 1)) ||
+      (route == kRouteAdc && (k < 1 || k > 256)) || (route != kRouteBit && route != kRouteAdc)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int track = track_visited != 0;
+  bool stage = route == kRouteAdc && (long long)width * k * 4 <= kAdcStageBytes;
+  Geometry g = pick_geometry(B, L, W, R, query_words(route, width, k, stage), S, track);
+  if (stage && (long long)g.team_bytes > kSmemBudget) {
+    stage = false;
+    g = pick_geometry(B, L, W, R, query_words(route, width, k, stage), S, track);
+  }
+  if ((long long)g.team_bytes * g.qpb > kSmemBudget) return (int)cudaErrorInvalidValue;
+  Walk a = walk_of(cap, adjacency, R, prepared, B, seeds, S, L, W, max_hops, track, cand_d, cand_i, vis_d, vis_i,
+                   hops, counts);
+  const uintptr_t at = reinterpret_cast<uintptr_t>(codes);
+  a.cq.codes = codes;
+  a.cq.width = width;
+  a.cq.k = k;
+  a.cq.jaccard = route == kRouteBit && bit_metric == 1;
+  a.cq.stage = stage;
+  a.cq.vec = route == kRouteBit ? (width % 4 == 0 && (at & 15) == 0) : (width % 8 == 0 && (at & 7) == 0);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(route == kRouteBit ? launch_route<kRouteBit, false>(g, a, st)
+                                  : launch_route<kRouteAdc, false>(g, a, st));
 }
 
 const char* semadb_vamana_search_error_string(int code) {

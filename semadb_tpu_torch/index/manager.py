@@ -2,13 +2,13 @@
 
 Port of ``semadb_tpu/index/manager.py`` for the index types the port has:
 the vector engines ``vectorFlat`` and ``vectorIVF`` (each with or without a
-product quantizer), ``vectorFused`` and ``vectorVamana`` (plain vectors) on
-the device, and the host indices ``text``, ``string``, ``integer``, ``float``
-and ``stringArray`` (inverted postings and TF-IDF text over the store). A
-``vectorVamana`` with a quantizer, or with the hamming or jaccard metric
-(which force the binary store), is refused with a ``ValidationError`` that
-says it comes in slice 14 (:func:`check_supported`, called where a collection
-is created and where a shard is opened).
+product quantizer), ``vectorFused`` and ``vectorVamana`` (plain, with a
+binary or product quantizer, or with the hamming or jaccard metric) on the
+device, and the host indices ``text``, ``string``, ``integer``, ``float``
+and ``stringArray`` (inverted postings and TF-IDF text over the store). Any
+other index type is refused with a ``ValidationError`` that names the
+supported ones (:func:`check_supported`, called where a collection is
+created and where a shard is opened).
 
 Dispatch: for every schema property, diff the old/new msgpack documents to
 classify insert/update/delete/skip, then route the change batch to that
@@ -42,7 +42,6 @@ from semadb_tpu_torch.models.errors import NotFoundError, ValidationError
 from semadb_tpu_torch.models.point import SearchResult, access_nested, decode_point_data
 from semadb_tpu_torch.models.query import Query
 from semadb_tpu_torch.models.schema import IndexSchema
-from semadb_tpu_torch.shard import pointstore
 from semadb_tpu_torch.store.diskstore import BucketManager
 from semadb_tpu_torch.utils.itemcache import ItemCache
 
@@ -84,13 +83,6 @@ def check_supported(schema: IndexSchema) -> None:
                 f"index type {params.type} (property {prop}) is not supported by "
                 f"semadb_tpu_torch yet; supported: {', '.join(SUPPORTED_INDEX_TYPES)}"
             )
-        if params.type == C.INDEX_TYPE_VECTOR_VAMANA:
-            vp = params.vector_vamana
-            if vp.quantizer is not None or vp.distance_metric in (C.DISTANCE_HAMMING, C.DISTANCE_JACCARD):
-                raise ValidationError(
-                    f"a quantized vectorVamana index (property {prop}: a quantizer, or the hamming or "
-                    f"jaccard metric) is not supported by semadb_tpu_torch yet; it comes in slice 14"
-                )
 
 
 def _vector_params(params):
@@ -442,3 +434,9 @@ class IndexManager:
                     if m.score is None and r.score is not None:
                         m.score = r.score
         return final, sorted((merged[n] for n in order), key=lambda r: -r.hybrid_score)
+
+
+# Last: the shard package imports this module, so importing it before the
+# names above exist would fail when this module is imported first (the JAX
+# package's manager has that cycle)
+from semadb_tpu_torch.shard import pointstore  # noqa: E402

@@ -2,18 +2,23 @@
 
 Port of ``semadb_tpu/index/vamana/__init__.py`` (reference:
 shard/index/vamana/vamana.go): ``insert_update_delete`` over
-(id, vector|None) changes, the two-pass ``insert_bulk``, ``search_batch``
-with an optional filter, and persistence through the JAX package's array
-layout (``to_arrays`` / ``from_arrays``, routing arrays included, so a graph
-the JAX package built and saved searches the same way here). The walk is K10
-and the prune K11 (``ops/kernels/vamana_search.py``,
-``ops/kernels/vamana_prune.py``).
+(id, vector|None) changes, the two-pass ``insert_bulk`` or the pool build
+(``build_mode="pool"``, ``fastbuild.py``), ``search_batch`` with an
+optional filter, and persistence through the JAX package's array layout
+(``to_arrays`` / ``from_arrays``, routing arrays and the quantizer's store
+included, so a graph the JAX package built and saved searches the same way
+here). The walk is K10 and the prune K11 (``ops/kernels/vamana_search.py``,
+``ops/kernels/vamana_prune.py``), the rerank of a quantized walk K4.
 
-Plain f32 vectors only: a quantizer, or a hamming or jaccard metric (which
-force the binary store), raises ``NotImplementedError``, as does the pool
-build (``build_mode="pool"``, ``fastbuild.py``); both come in slice 14.
+A binary or product quantizer (vectorstore.go:47-96) fits at the end of the
+write that reaches its trigger; from then on the walk scores codes and the
+results are reranked in f32. The hamming and jaccard metrics build the graph
+in euclidean (on 0/1 vectors squared euclidean is hamming) over a binary
+store with a fixed threshold, and a search returns the bit distances.
 Capacity grows along one chain (``graph.required_capacity``) live and on
-reload, so a reopened index has the capacity the live one had.
+reload, and the code table grows with it (``VectorStore.ensure_rows``), so
+a reopened index has the capacity the live one had and a search copies no
+codes.
 """
 
 from __future__ import annotations
@@ -68,10 +73,9 @@ PASS2_CHUNK = int(os.environ.get("SEMADB_VAMANA_PASS2_CHUNK", 4096))
 # Per-pass search-list overrides (0 = the index's searchSize)
 PASS1_L = int(os.environ.get("SEMADB_VAMANA_PASS1_L", 0))
 PASS2_L = int(os.environ.get("SEMADB_VAMANA_PASS2_L", 0))
-# Bulk-build strategy: "search" (the two passes above) or "pool" (not ported)
+# Bulk-build strategy: "search" (the two passes above) or "pool", the
+# per-cluster kNN pool build (fastbuild.py) for fresh graphs
 BUILD_MODE = os.environ.get("SEMADB_VAMANA_BUILD", "search")
-
-LATER = "it comes in slice 14 of the port"
 
 
 def _route_seeds(cents, reps, exists, q, metric: str, s: int):
@@ -94,18 +98,26 @@ class IndexVamana:
     N_ROUTE_SEEDS = 8
 
     def __init__(self, params: VectorVamanaParams, device: torch.device, capacity: int = graph.MIN_CAPACITY):
-        if params.quantizer is not None or params.distance_metric in (C.DISTANCE_HAMMING, C.DISTANCE_JACCARD):
-            raise NotImplementedError(f"a quantized vectorVamana index is not ported to semadb_tpu_torch yet: {LATER}")
         self.params = params
         self.device = torch.device(device)
+        # Bit metrics build the graph in euclidean: on 0/1 vectors squared
+        # euclidean equals hamming; search distances come from the forced
+        # binary store (vectorstore.go:56-67)
+        internal_metric = params.distance_metric
+        if internal_metric in (C.DISTANCE_HAMMING, C.DISTANCE_JACCARD):
+            internal_metric = C.DISTANCE_EUCLIDEAN
         self.config = GraphConfig(
-            dim=params.vector_size, metric=params.distance_metric, degree_bound=params.degree_bound,
+            dim=params.vector_size, metric=internal_metric, degree_bound=params.degree_bound,
             search_size=params.search_size, alpha=params.alpha,
         )
         self.state = init_graph(self.config, self.device, capacity)
-        # The plain store: no codes; it keeps the snapshot layout's "store"
-        self.store = VectorStore(QuantConfig.from_params(None, params.vector_size, params.distance_metric),
-                                 self.device)
+        # The quantizer (vectorstore.go:47-96): plain unless params.quantizer
+        # is set or the metric is a bit metric; its code table keeps the
+        # graph's capacity
+        self.store = VectorStore(
+            QuantConfig.from_params(params.quantizer, params.vector_size, params.distance_metric), self.device
+        )
+        self.store.ensure_rows(self.state.capacity)
         # Entry seeds: a spread of live nodes beside the start node
         self._entry_seeds: Optional[np.ndarray] = None
         # Query-routed entry (graphs the pool build made): cluster centroids
@@ -184,10 +196,8 @@ class IndexVamana:
             idx._route = (host_tensor(arrays["route_cents"], np.float32).to(dev),
                           host_tensor(arrays["route_reps"], np.int32).to(dev))
         if "store" in arrays:
-            store = arrays["store"]
-            if store.get("fitted"):
-                raise NotImplementedError(f"a graph saved with a fitted quantizer cannot be loaded yet: {LATER}")
-            idx.store.load_arrays(store)
+            idx.store.load_arrays(arrays["store"])
+        idx.store.ensure_rows(idx.state.capacity)
         # Loaded state matches the snapshot it came from: nothing dirty.
         idx.dirty.clear()
         return idx
@@ -211,6 +221,7 @@ class IndexVamana:
         self._max_seen = max(self._max_seen, int(max_id))
         if max_id >= self.state.capacity:
             self.state = grow_graph(self.state, required_capacity(max_id, self.config, self.state.capacity))
+            self.store.ensure_rows(self.state.capacity)
             # Shape change: every capacity-shaped array rewrites in full
             for name in ("vectors", "adjacency", "exists", "store/codes"):
                 self.dirty.all(name)
@@ -263,7 +274,25 @@ class IndexVamana:
                 self.dirty.rows("exists", repair_ids)
             if updates:
                 self._insert_chunked(updates)
+            # The quantizer's fit trigger at the end of the write
+            # (vamana.go:255-276: vecStore.Fit() before the flush)
+            self._maybe_fit()
             self._entry_seeds = None  # recomputed after any write
+
+    def _maybe_fit(self) -> bool:
+        """Fit the quantizer once the live count reaches its trigger; the fit
+        encodes every row, so the whole store is dirty."""
+        if not self.store.maybe_fit(self.state.vectors, self.state.exists):
+            return False
+        for name in ("store/codes", "store/aux", "store/rot"):
+            self.dirty.all(name)
+        return True
+
+    def _encode_after_build(self, ids: np.ndarray) -> None:
+        """The end of a bulk build: the fit trigger, or where the store was
+        fitted already the batch's rows encoded."""
+        if not self._maybe_fit() and self.store.fitted:
+            self.store.encode_rows(self.state.vectors, ids)
 
     def _insert_chunked(self, items: Sequence[Tuple[int, np.ndarray]]) -> None:
         """Insert in growing rounds, each no larger than the graph (doubling,
@@ -280,17 +309,24 @@ class IndexVamana:
             insert_batch(self.state, ids, vecs, self.config, self.params.search_size)
             if self.dirty.active:
                 self._mark_write(ids)
+            # Rows written after the fit are encoded (binary.go/product.go Set)
+            if self.store.fitted:
+                self.store.encode_rows(self.state.vectors, ids)
 
     def insert_bulk(self, ids, vecs, defer_fit: bool = False, build_mode: str | None = None) -> None:
-        """Array bulk build with the two-pass alpha schedule: pass 1 inserts
-        in doubling rounds at alpha = 1.0, pass 2 re-inserts every point in
-        batches of PASS2_CHUNK against the complete graph at the configured
-        alpha with the node's current out-edges in its pool. ``defer_fit`` is
-        taken for IndexIVF's signature and ignored. A batch with existing or
-        repeated ids goes through :meth:`insert_update_delete`. The seconds of
-        each pass and of the overflow rounds land in ``build_seconds``."""
-        if (build_mode or BUILD_MODE) == "pool":
-            raise NotImplementedError(f"the pool build (fastbuild.py) is not ported to semadb_tpu_torch yet: {LATER}")
+        """Array bulk build. ``build_mode`` (default SEMADB_VAMANA_BUILD)
+        "search": the two-pass alpha schedule, pass 1 inserting in doubling
+        rounds at alpha = 1.0, pass 2 re-inserting every point in batches of
+        PASS2_CHUNK against the complete graph at the configured alpha with
+        the node's current out-edges in its pool; "pool": the per-cluster kNN
+        pool build (``fastbuild.bulk_build_pools``) where the graph is empty,
+        the batch holds at least TWO_PASS_MIN points and the metric has a
+        dense product (euclidean, cosine, dot), else the two passes. The
+        quantizer's fit trigger runs at the end (or, fitted already, the rows
+        are encoded). ``defer_fit`` is taken for IndexIVF's signature and
+        ignored. A batch with existing or repeated ids goes through
+        :meth:`insert_update_delete`. The seconds of each pass (or stage) and
+        of the fit land in ``build_seconds``."""
         ids_np = np.asarray(ids, np.int64)
         n = len(ids_np)
         if n == 0:
@@ -304,44 +340,65 @@ class IndexVamana:
                 host = vecs.cpu().numpy() if isinstance(vecs, torch.Tensor) else np.asarray(vecs)
                 self.insert_update_delete(zip(ids_np.tolist(), host))
                 return
-            vec_t = torch.as_tensor(vecs).to(self.device, torch.float32)
+            pool_mode = (
+                (build_mode or BUILD_MODE) == "pool" and len(self) == 0 and n >= TWO_PASS_MIN
+                and self.config.metric in (C.DISTANCE_EUCLIDEAN, C.DISTANCE_COSINE, C.DISTANCE_DOT)
+            )
             self._ensure_capacity(int(ids_np.max()))
             # A bulk build's searches roam the whole graph: the next snapshot is full
             self.dirty.everything()
             ids32 = ids_np.astype(np.int32)
-            two_pass = TWO_PASS and n >= TWO_PASS_MIN
-            a1 = 1.0 if two_pass else None
-            l1 = (PASS1_L if two_pass else 0) or self.params.search_size
             l2 = PASS2_L or self.params.search_size
-            timers0 = dict(build.BUILD_TIMERS)
+            if pool_mode:
+                from semadb_tpu_torch.index.vamana import fastbuild
+
+                # The corpus goes in without a name here, so that the lean
+                # flow can drop the only reference once the graph holds it
+                self.build_seconds = fastbuild.bulk_build_pools(
+                    self, ids32, torch.as_tensor(vecs).to(self.device, torch.float32), l2)
+            else:
+                self.build_seconds = self._two_pass(ids32, torch.as_tensor(vecs).to(self.device, torch.float32),
+                                                    l2)
             t0 = time.perf_counter()
-            live = max(len(self), 32)
-            i = 0
-            while i < n:
-                step = min(INSERT_CHUNK, max(32, live))
-                insert_batch(self.state, ids32[i : i + step], vec_t[i : i + step], self.config, l1, alpha=a1)
-                live += step
-                i += step
+            self._encode_after_build(ids32)
             self.sync()
-            t1 = time.perf_counter()
-            timers1 = dict(build.BUILD_TIMERS)
-            if two_pass:
-                for i in range(0, n, PASS2_CHUNK):
-                    insert_batch(self.state, ids32[i : i + PASS2_CHUNK], vec_t[i : i + PASS2_CHUNK], self.config,
-                                 l2, keep_current=True)
-                self.sync()
-            t2 = time.perf_counter()
-            timers2 = dict(build.BUILD_TIMERS)
-            self.build_seconds = {
-                "pass1_s": t1 - t0, "pass2_s": t2 - t1,
-                "pass1_batches": timers1["batches"] - timers0["batches"],
-                "pass2_batches": timers2["batches"] - timers1["batches"],
-                "pass1_overflow_rounds": timers1["overflow_rounds"] - timers0["overflow_rounds"],
-                "pass2_overflow_rounds": timers2["overflow_rounds"] - timers1["overflow_rounds"],
-                "pass1_overflow_s": timers1["overflow_s"] - timers0["overflow_s"],
-                "pass2_overflow_s": timers2["overflow_s"] - timers1["overflow_s"],
-            }
+            self.build_seconds["fit_s"] = time.perf_counter() - t0
             self._entry_seeds = None
+
+    def _two_pass(self, ids32: np.ndarray, vec_t: torch.Tensor, l2: int) -> dict:
+        """The two-pass schedule of :meth:`insert_bulk`; returns its seconds."""
+        n = len(ids32)
+        two_pass = TWO_PASS and n >= TWO_PASS_MIN
+        a1 = 1.0 if two_pass else None
+        l1 = (PASS1_L if two_pass else 0) or self.params.search_size
+        timers0 = dict(build.BUILD_TIMERS)
+        t0 = time.perf_counter()
+        live = max(len(self), 32)
+        i = 0
+        while i < n:
+            step = min(INSERT_CHUNK, max(32, live))
+            insert_batch(self.state, ids32[i : i + step], vec_t[i : i + step], self.config, l1, alpha=a1)
+            live += step
+            i += step
+        self.sync()
+        t1 = time.perf_counter()
+        timers1 = dict(build.BUILD_TIMERS)
+        if two_pass:
+            for i in range(0, n, PASS2_CHUNK):
+                insert_batch(self.state, ids32[i : i + PASS2_CHUNK], vec_t[i : i + PASS2_CHUNK], self.config,
+                             l2, keep_current=True)
+            self.sync()
+        t2 = time.perf_counter()
+        timers2 = dict(build.BUILD_TIMERS)
+        return {
+            "pass1_s": t1 - t0, "pass2_s": t2 - t1,
+            "pass1_batches": timers1["batches"] - timers0["batches"],
+            "pass2_batches": timers2["batches"] - timers1["batches"],
+            "pass1_overflow_rounds": timers1["overflow_rounds"] - timers0["overflow_rounds"],
+            "pass2_overflow_rounds": timers2["overflow_rounds"] - timers1["overflow_rounds"],
+            "pass1_overflow_s": timers1["overflow_s"] - timers0["overflow_s"],
+            "pass2_overflow_s": timers2["overflow_s"] - timers1["overflow_s"],
+        }
 
     def flush_pending(self) -> None:
         """Interface parity with IndexIVF's deferred refit — no-op here."""
@@ -376,21 +433,34 @@ class IndexVamana:
             return torch.atleast_2d(queries).to(self.device, torch.float32).contiguous()
         return torch.from_numpy(np.atleast_2d(np.asarray(queries, np.float32))).to(self.device)
 
+    def _quant_args(self, q: torch.Tensor) -> dict:
+        """The quantized walk's arguments once the store is fitted: its
+        config, the code table (the graph's capacity rows) and the prepared
+        queries (vectorstore dispatch, vectorstore.go:23-43); else none."""
+        if not self.store.fitted or self.store.config.kind == "plain":
+            return {}
+        return {"quant": self.store.config, "qcodes": self.store.state.codes,
+                "qquery": self.store.prepare_queries(q)}
+
     def search_batch_async(self, queries, k: int, search_size: int = 0):
         """Enqueue a search without waiting: device tensors (dists f32[B, k],
         ids i32[B, k]). ``queries`` is a numpy array or a tensor."""
         search_size = max(search_size or self.params.search_size, k)
         q = self._queries(queries)
         with self._write_lock:
-            return search_mod.search(self.state, q, self.config, search_size, k, seed_ids=self._seeds_for(q))
+            return search_mod.search(self.state, q, self.config, search_size, k, seed_ids=self._seeds_for(q),
+                                     **self._quant_args(q))
 
     def query_walk(self, queries, search_size: int) -> search_mod.BeamResult:
-        """The walk that :meth:`search_batch_async` runs (W = 2, its seeds),
-        with its hops and counts, for the bench's hops per query."""
+        """The walk that :meth:`search_batch_async` runs (W = 2, its seeds,
+        its route, the ring where it reranks), with its hops and counts, for
+        the bench's hops per query."""
         q = self._queries(queries)
         with self._write_lock:
+            qa = self._quant_args(q)
+            track = bool(qa) and not qa["quant"].user_bit_metric
             return search_mod.beam_search(self.state, q, self.config, search_size, seed_ids=self._seeds_for(q),
-                                          expand_width=2, track_visited=False)
+                                          expand_width=2, track_visited=track, **qa)
 
     def _seeds_for(self, q: torch.Tensor) -> Optional[torch.Tensor]:
         """The walk's entry seeds: routed by the query where the graph has
@@ -418,7 +488,7 @@ class IndexVamana:
                 given = np.asarray(filter_mask, bool)[:cap]
                 fm[: given.shape[0]] = given
                 d, i = search_filtered(self.state, q, torch.from_numpy(fm).to(self.device), self.config,
-                                       search_size, k)
+                                       search_size, k, **self._quant_args(q))
         return d.cpu().numpy(), i.cpu().numpy()
 
     def set_query_routing(self, cents, reps) -> None:

@@ -15,7 +15,8 @@ scatters become writes through explicit masks, and its ``top_k`` selections
 stable sorts (ids ascending, or ``ops.topk.smallest_k_stable`` for distances), so ties
 fall as they fall there. The JAX ``insert_batch`` pads a batch to a bucket
 size for XLA; the padded rows change nothing that a real row sees, so the
-port does not pad, and the fast pool build (``fastbuild.py``) is not ported.
+port does not pad. A caller's candidate pools (``pool_d``, ``pool_i``: the
+pool build of ``fastbuild.py``) replace the walk's visited set.
 """
 
 from __future__ import annotations
@@ -69,16 +70,24 @@ def robust_prune_batch(cand_d, cand_i, self_ids, vectors, config: GraphConfig, a
 
 
 def candidate_pools(state: GraphState, new_ids: torch.Tensor, new_vecs: torch.Tensor, config: GraphConfig,
-                    search_size: int, intra_k: int, own_edges=None, expand_width: int = 8, seed_own: bool = False):
+                    search_size: int, intra_k: int, own_edges=None, expand_width: int = 8, seed_own: bool = False,
+                    pool_d=None, pool_i=None):
     """The pools the prune takes for a batch whose vectors are written: the
-    visited ring of a greedy search on the pre-batch graph, each point's
-    ``intra_k`` nearest in-batch peers, and with ``own_edges`` (keep_current)
-    the node's current out-edges, deduplicated; sorted by (distance, id)."""
+    visited ring of a greedy search on the pre-batch graph (or the caller's
+    ``pool_d``/``pool_i``, NIL-padded and in any order, deduplicated), each
+    point's ``intra_k`` nearest in-batch peers, and with ``own_edges``
+    (keep_current) the node's current out-edges, deduplicated; sorted by
+    (distance, id)."""
     cap = state.capacity
     B = new_ids.shape[0]
-    seeds = own_edges if seed_own and own_edges is not None else None
-    res = beam_search(state, new_vecs, config, search_size, expand_width=expand_width, seed_ids=seeds)
-    cand_d, cand_i = res.visited_dists, res.visited_ids  # [B, V] sorted
+    if pool_i is not None:
+        pi = pool_i.to(torch.int32)
+        pd = pool_d.to(torch.float32).masked_fill(pi == NIL, INF)
+        cand_d, cand_i = sort_by_distance(*dedup_by_id(pd, pi))
+    else:
+        seeds = own_edges if seed_own and own_edges is not None else None
+        res = beam_search(state, new_vecs, config, search_size, expand_width=expand_width, seed_ids=seeds)
+        cand_d, cand_i = res.visited_dists, res.visited_ids  # [B, V] sorted
     # The sequential reference lets later inserts see earlier ones; a batch
     # adds each point's nearest in-batch peers instead
     if intra_k > 0:
@@ -100,7 +109,7 @@ def candidate_pools(state: GraphState, new_ids: torch.Tensor, new_vecs: torch.Te
 
 def _insert_core(state: GraphState, new_ids: torch.Tensor, new_vecs: torch.Tensor, config: GraphConfig,
                  search_size: int, intra_k: int, keep_current: bool = False, alpha=None, expand_width: int = 8,
-                 seed_own: bool = False):
+                 seed_own: bool = False, pool_d=None, pool_i=None):
     """Write, search, prune the new rows, and the phase-A backedge scatter.
     Returns the target-sorted backedge arrays for the overflow rounds:
     (targets i32[E], sources i32[E], pending bool[E])."""
@@ -116,7 +125,7 @@ def _insert_core(state: GraphState, new_ids: torch.Tensor, new_vecs: torch.Tenso
     # 2-3. Candidates: the search on the pre-batch graph, the in-batch peers
     #      and, with keep_current, the current out-edges
     cand_d, cand_i = candidate_pools(state, new_ids, new_vecs, config, search_size, intra_k, own_edges,
-                                     expand_width, seed_own)
+                                     expand_width, seed_own, pool_d, pool_i)
 
     # 4. Robust prune → the new rows
     new_rows = robust_prune_batch(cand_d, cand_i, new_ids, state.vectors, config, alpha)
@@ -210,10 +219,10 @@ def overflow_pools(state: GraphState, targets, sources, pending, config: GraphCo
 
 def _insert_step(state: GraphState, new_ids, new_vecs, config: GraphConfig, search_size: int, intra_k: int,
                  chunk: int, keep_current: bool = False, alpha=None, expand_width: int = 8,
-                 seed_own: bool = False) -> GraphState:
+                 seed_own: bool = False, pool_d=None, pool_i=None) -> GraphState:
     """Search, prune, backedges, then overflow rounds until none is pending."""
     targets, sources, pending = _insert_core(state, new_ids, new_vecs, config, search_size, intra_k,
-                                             keep_current, alpha, expand_width, seed_own)
+                                             keep_current, alpha, expand_width, seed_own, pool_d, pool_i)
     t0 = None
     while bool(pending.any()):
         if t0 is None:
@@ -226,11 +235,12 @@ def _insert_step(state: GraphState, new_ids, new_vecs, config: GraphConfig, sear
 
 
 def insert_batch(state: GraphState, new_ids, new_vecs, config: GraphConfig, search_size: int = 0,
-                 intra_k: int = 8, keep_current: bool = False, alpha: float | None = None, expand_width: int = 0,
-                 seed_own: bool = False) -> GraphState:
+                 intra_k: int = 8, keep_current: bool = False, alpha: float | None = None,
+                 pool_d=None, pool_i=None, expand_width: int = 0, seed_own: bool = False) -> GraphState:
     """Insert a batch of points: ``new_ids`` [B] unique, not 0 or 1, within
     capacity; ``new_vecs`` f32[B, D] (numpy or tensors). ``alpha`` overrides
-    the prune's alpha (the two-pass schedule)."""
+    the prune's alpha (the two-pass schedule). ``pool_d``/``pool_i`` [B, P]
+    (numpy or tensors) skip the search and are the candidate pools."""
     search_size = search_size or config.search_size
     expand_width = expand_width or BUILD_W
     B = int(new_ids.shape[0])
@@ -240,9 +250,12 @@ def insert_batch(state: GraphState, new_ids, new_vecs, config: GraphConfig, sear
     ids = torch.as_tensor(np.asarray(new_ids) if not isinstance(new_ids, torch.Tensor) else new_ids)
     ids = ids.to(device=dev, dtype=torch.int32)
     vecs = torch.as_tensor(new_vecs).to(device=dev, dtype=torch.float32).contiguous()
+    if pool_i is not None:
+        pool_d = torch.as_tensor(pool_d).to(dev)
+        pool_i = torch.as_tensor(pool_i).to(dev)
     chunk = min(OVERFLOW_CHUNK, state.capacity)
     _insert_step(state, ids, vecs, config, search_size, intra_k, chunk, keep_current,
-                 config.alpha if alpha is None else alpha, expand_width, seed_own)
+                 config.alpha if alpha is None else alpha, expand_width, seed_own, pool_d, pool_i)
     BUILD_TIMERS["batches"] += 1
     return state
 

@@ -25,6 +25,7 @@ from semadb_tpu_torch.models import constants as C
 from semadb_tpu_torch.ops.kernels.hamming import (
     pairwise_bit_distance_plain as pairwise_bit_distance,
 )
+from semadb_tpu_torch.ops.kernels.hamming import popcount_sum
 
 EARTH_RADIUS = 6371000.0
 _DEG_TO_RAD = math.pi / 180.0
@@ -33,7 +34,8 @@ FLOAT_METRICS = (C.DISTANCE_EUCLIDEAN, C.DISTANCE_DOT, C.DISTANCE_COSINE, C.DIST
 BIT_METRICS = (C.DISTANCE_HAMMING, C.DISTANCE_JACCARD)
 
 __all__ = [
-    "pairwise_distance", "gather_distance", "pairwise_bit_distance", "is_bit_metric", "validate_metric",
+    "pairwise_distance", "gather_distance", "pairwise_bit_distance", "gather_bit_distance", "is_bit_metric",
+    "validate_metric",
 ]
 
 
@@ -87,6 +89,25 @@ def gather_distance(
     if metric == C.DISTANCE_HAVERSINE:
         return _haversine_pair(queries[:, None, :], cand)
     raise ValueError(f"unknown float32 distance function: {metric}")
+
+
+def gather_bit_distance(
+    codes: torch.Tensor, ids: torch.Tensor, query_code: torch.Tensor, metric: str
+) -> torch.Tensor:
+    """Per-query bit distances to gathered codes: ``codes`` i32[cap, W] (the
+    JAX package's u32 words), ``ids`` [B, K] (in range; the caller clips),
+    ``query_code`` i32[B, W] → f32[B, K]. Hamming is the popcount of the
+    xor; jaccard ``1 - |and| / |or|``, and 0 where ``|or| == 0``."""
+    cand = codes[ids.long()]  # [B, K, W]
+    q = query_code[:, None, :]
+    if metric == C.DISTANCE_HAMMING:
+        return popcount_sum(q ^ cand).to(torch.float32)
+    if metric == C.DISTANCE_JACCARD:
+        inter = popcount_sum(q & cand)
+        union = popcount_sum(q | cand)
+        d = 1.0 - inter.to(torch.float32) / union.clamp(min=1).to(torch.float32)
+        return torch.where(union == 0, 0.0, d)
+    raise ValueError(f"unknown bit distance function: {metric}")
 
 
 def is_bit_metric(metric: str) -> bool:

@@ -59,6 +59,13 @@ _POPCOUNT8 = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.i
 _PLAIN_BLOCK_BYTES = 1 << 26
 
 
+def popcount_sum(words: torch.Tensor) -> torch.Tensor:
+    """The set bits of the words ``[..., W]`` summed over the last axis →
+    i32[...]: a 256-entry byte table over a ``uint8`` view."""
+    nbytes = words.contiguous().view(torch.uint8).to(torch.int64)
+    return _POPCOUNT8.to(words.device)[nbytes].sum(-1, dtype=torch.int32)
+
+
 def pairwise_bit_distance_plain(
     queries: torch.Tensor, corpus: torch.Tensor, metric: str
 ) -> torch.Tensor:
@@ -71,14 +78,8 @@ def pairwise_bit_distance_plain(
         raise ValueError(f"unknown bit distance function: {metric}")
     B, W = queries.shape
     N = corpus.shape[0]
-    table = _POPCOUNT8.to(queries.device)
     out = torch.empty((B, N), dtype=torch.float32, device=queries.device)
     step = max(1, _PLAIN_BLOCK_BYTES // max(B * W * 4, 1))
-
-    def popcount_sum(words: torch.Tensor) -> torch.Tensor:
-        nbytes = words.contiguous().view(torch.uint8).to(torch.int64)
-        return table[nbytes].sum(-1, dtype=torch.int32)
-
     q = queries[:, None, :]
     for lo in range(0, N, step):
         x = corpus[None, lo : lo + step, :]

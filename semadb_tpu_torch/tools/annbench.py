@@ -17,13 +17,21 @@ two-view engine over ``embedding_like_views``, below, with 4 copies unless
 the Vamana graph at searchSize 75, degreeBound 64, alpha 1.2 (the reference's
 v1 settings) built by the two-pass ``insert_bulk``, then queries at L = 40
 (``--search-size``), W = 2, in batches of 8,192; it prints the build's seconds
-by pass and overflow rounds, and the walk's hops per query.
+by pass and overflow rounds, and the walk's hops per query. With
+``--quantizer binary`` it is ``BENCH_MODE=bq`` (a binary quantizer, hamming,
+fit at 10,000 points) and with ``--quantizer product`` ``BENCH_MODE=pq`` (M =
+max(D // 16, 4), K = 256, OPQ on, fit at 10,000 points): the walk scores the
+codes and the results are reranked in f32, at L = 75 unless
+``--search-size`` says otherwise (``bench.py:58-60``). ``--build pool`` is
+``SEMADB_VAMANA_BUILD=pool``: the per-cluster kNN pool build, its seconds by
+stage.
 
 Usage (the defaults are ``bench.py``'s: 1,000,000 x 128, 32,768 queries in
 batches of 4,096, spread 0.5, euclidean, assignCopies 2, k = 10):
 
     python3 -m semadb_tpu_torch.tools.annbench [--device cuda] [--n 1000000] [--sweep 48,96] ...
     python3 -m semadb_tpu_torch.tools.annbench --engine vamana [--device cuda] [--n 1000000] ...
+    python3 -m semadb_tpu_torch.tools.annbench --engine vamana --quantizer binary|product [--build pool] ...
 
 From N x D >= 2^28 on a CUDA device the data come from the device generator
 (``embedding_like_device``) and stay on the card, as ``bench.py`` does; the
@@ -52,7 +60,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from semadb_tpu_torch.models.quantizer import ProductQuantizerParams, Quantizer
+from semadb_tpu_torch.models.quantizer import BinaryQuantizerParams, ProductQuantizerParams, Quantizer
 from semadb_tpu_torch.models.schema import VectorIVFParams, VectorVamanaParams
 from semadb_tpu_torch.tools.datasets import (
     AnnDataset,
@@ -93,13 +101,17 @@ class AnnBench:
             self.device,
         )
 
-    def fit_dataset(self, ds: AnnDataset) -> dict:
+    def fit_dataset(self, ds: AnnDataset, build_mode: Optional[str] = None) -> dict:
         """Bulk load that takes ownership of ``ds.train`` (dropped before the
-        deferred refit runs). Returns the build's seconds, split."""
+        deferred refit runs). Returns the build's seconds, split.
+        ``build_mode`` is the Vamana engine's ("search" or "pool")."""
         n = len(ds.train)
         ids = np.arange(2, n + 2, dtype=np.int32)
         t0 = time.perf_counter()
-        self.index.insert_bulk(ids, ds.train, defer_fit=True)
+        if self.engine == "vamana":
+            self.index.insert_bulk(ids, ds.train, build_mode=build_mode)
+        else:
+            self.index.insert_bulk(ids, ds.train, defer_fit=True)
         self.index.sync()
         t1 = time.perf_counter()
         ds.train = None
@@ -130,6 +142,7 @@ class AnnBench:
 PRIME_KERNEL = "spin_kernel"  # the kernel torch.cuda._sleep launches
 PRIME_LAUNCHES = 4
 PRIME_CYCLES = 5_000_000  # a spin kernel's clock cycles, ~2.5 ms on the H100
+PROFILE_WINDOWS = 3  # windows profile_batch opens before it reports the device time lost
 
 
 def prime_profiler() -> None:
@@ -176,31 +189,38 @@ def profile_batch(index, queries: np.ndarray, k: int, num_probes: int = 0, searc
     (``num_probes`` for the IVF and fused engines, ``search_size``, the
     walk's L, for the Vamana engine):
     device time by kernel and op and by stage (``STAGES``), the busy share of
-    the wall time, and the number of kernel launches."""
+    the wall time, and the number of kernel launches. A window that recorded
+    no device event at all (in a process that has profiled much, the
+    profiler can lose a whole window) is opened again, up to
+    ``PROFILE_WINDOWS`` times; if every one was lost the profile says so
+    (``lost_windows``) and holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prime_profiler()
-        t0 = time.perf_counter()
-        if search_size is None:
-            index.search_batch_async(queries, k, num_probes=num_probes)
-        else:
-            index.search_batch_async(queries, k, search_size=search_size)
+    for window in range(PROFILE_WINDOWS):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    by_kernel = {
-        e.key: e.self_device_time_total / 1e3 for e in events
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0 and PRIME_KERNEL not in e.key
-    }
-    busy_ms = sum(by_kernel.values())
-    launches = sum(
-        e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
-    ) - PRIME_LAUNCHES
-    if busy_ms <= 0:
-        raise RuntimeError("torch.profiler recorded no device time for the search batch")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prime_profiler()
+            t0 = time.perf_counter()
+            if search_size is None:
+                index.search_batch_async(queries, k, num_probes=num_probes)
+            else:
+                index.search_batch_async(queries, k, search_size=search_size)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        by_kernel = {
+            e.key: e.self_device_time_total / 1e3 for e in events
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0 and PRIME_KERNEL not in e.key
+        }
+        busy_ms = sum(by_kernel.values())
+        launches = sum(
+            e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+        ) - PRIME_LAUNCHES
+        if busy_ms > 0:
+            break
+    else:
+        return {"wall_ms": wall_ms, "device_ms": None, "lost_windows": PROFILE_WINDOWS, "launches": launches}
     by_stage: dict = {}
     for name, ms in by_kernel.items():
         by_stage[stage_of(name)] = by_stage.get(stage_of(name), 0.0) + ms
@@ -208,7 +228,7 @@ def profile_batch(index, queries: np.ndarray, k: int, num_probes: int = 0, searc
     other = {name: ms for name, ms in by_kernel.items() if stage_of(name) == "other"}
     return {"wall_ms": wall_ms, "device_ms": busy_ms, "busy_share": busy_ms / wall_ms,
             "launches": launches, "device_ms_by_stage": by_stage, "device_ms_by_kernel": top,
-            "other_kernels_ms": other}
+            "other_kernels_ms": other, "lost_windows": window}
 
 
 def card() -> str:
@@ -229,13 +249,13 @@ def _rows(a, idx: np.ndarray) -> torch.Tensor:
 def run(
     ds: AnnDataset, k: int = 10, batch: int = 1024, num_probes: int = 0, device="cuda",
     profile: bool = False, keep: Optional[dict] = None, sweep=(), engine: str = "ivf", search_size: int = 0,
-    **index_kw,
+    build_mode: Optional[str] = None, **index_kw,
 ) -> dict:
     """The JAX tool's ``run`` on ``device``, recall over every query.
     ``engine="ivf"``: ``num_probes`` 0 = the engine's default, and each probe
     count in ``sweep`` is one more operating point on the same build (best of
     two passes). ``engine="vamana"``: ``search_size`` is the query walk's L
-    (0 = the index's searchSize). ``ds`` may hold numpy arrays or tensors
+    (0 = the index's searchSize), ``build_mode`` the bulk build's. ``ds`` may hold numpy arrays or tensors
     (the device generator's; then nothing of the corpus visits the host).
     ``keep``, when given, receives the built ``index`` and the ``queries``
     (for callers that go on to time the kernels on the cell's own operands),
@@ -271,7 +291,7 @@ def run(
     # The query pass's operating point: the probe count, or the walk's L
     op = search_size if vamana else num_probes
     stage(f"fit start n={n_train}")
-    build = bench.fit_dataset(ds)
+    build = bench.fit_dataset(ds, build_mode)
     stage(f"fit done {build['build_s']:.1f}s {build['split']}")
     idx = bench.index
 
@@ -325,7 +345,16 @@ def run(
             "hops_per_query": float(walk.query_hops.float().mean()), "hops_max": int(walk.hops),
             "expanded_per_query": float(walk.counts[:, 0].float().mean()),
             "rows_scored_per_query": float(walk.counts[:, 1].float().mean()),
+            "build_mode": build_mode or "search",
         })
+        store = idx.store.config
+        if store.kind != "plain":
+            out["quantizer"] = {"kind": store.kind, "fitted": idx.store.fitted, "trigger": store.trigger,
+                                "fit_s": idx.build_seconds.get("fit_s")}
+            if store.kind == "product":
+                out["quantizer"].update(m=store.num_subvectors, k=store.num_centroids, opq=store.opq)
+            else:
+                out["quantizer"]["bit_metric"] = store.bit_metric
     else:
         probes = idx._num_probes(num_probes)
         sweep_rows = []
@@ -372,6 +401,7 @@ FUSED_REFUSES = ("quantizer", "sweep", "spread", "metric")
 # bench.py:_quantizer's product quantizer (M = max(D // 16, 4) subvectors)
 PQ_CENTROIDS = 256
 PQ_TRIGGER = 10_000
+BQ_TRIGGER = 10_000  # bench.py:_quantizer's binary quantizer (hamming)
 
 
 def fused_ground_truth(train, test, weights, k: int, device) -> np.ndarray:
@@ -478,21 +508,27 @@ def main(argv=None, keep: Optional[dict] = None) -> int:
     ap.add_argument("--sweep", default="", help="comma-separated probe counts, each run on the same build")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--quantizer", default="none", choices=["none", "product"],
-                    help="product: IVF-PQ (bench.py's BENCH_MODE=ivfpq)")
+    ap.add_argument("--quantizer", default="none", choices=["none", "product", "binary"],
+                    help="product: IVF-PQ (BENCH_MODE=ivfpq), or with --engine vamana BENCH_MODE=pq; binary: "
+                         "BENCH_MODE=bq (--engine vamana)")
     ap.add_argument("--engine", default="ivf", choices=["ivf", "vamana"],
                     help="vamana: bench.py's BENCH_MODE=plain (the graph at L 75, R 64, alpha 1.2)")
-    ap.add_argument("--search-size", type=int, default=40,
-                    help="the Vamana query walk's L (bench.py's BENCH_MODE=plain: 40)")
+    ap.add_argument("--search-size", type=int, default=None,
+                    help="the Vamana query walk's L (bench.py: 40 for BENCH_MODE=plain, 75 with a quantizer)")
+    ap.add_argument("--build", default=None, choices=["search", "pool"],
+                    help="the Vamana bulk build (SEMADB_VAMANA_BUILD): two passes of walks, or the kNN pool build")
     ap.add_argument("--fused", action="store_true",
                     help="bench.py's BENCH_MODE=fused: two views (dim, max(dim // 2, 16)), the fused engine")
     args = ap.parse_args(argv)
     vamana = args.engine == "vamana"
     if args.batch is None:
         args.batch = 8192 if vamana else 4096
-    if vamana and (args.fused or args.quantizer != "none" or args.sweep or args.probes or args.copies):
-        ap.error("--engine vamana takes none of --fused, --quantizer, --sweep, --probes, --copies "
-                 "(the quantized walk comes in slice 14)")
+    if vamana and (args.fused or args.sweep or args.probes or args.copies):
+        ap.error("--engine vamana takes none of --fused, --sweep, --probes, --copies")
+    if not vamana and (args.quantizer == "binary" or args.build or args.search_size is not None):
+        ap.error("--quantizer binary, --build and --search-size take --engine vamana")
+    if args.search_size is None:
+        args.search_size = 40 if args.quantizer == "none" else 75
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("annbench: --device cuda needs a CUDA device (pass --device cpu to run the plain versions)")
@@ -509,6 +545,9 @@ def main(argv=None, keep: Optional[dict] = None) -> int:
     if args.quantizer == "product":
         quantizer = Quantizer(type="product", product=ProductQuantizerParams(
             num_centroids=PQ_CENTROIDS, num_subvectors=max(args.dim // 16, 4), trigger_threshold=PQ_TRIGGER))
+    elif args.quantizer == "binary":
+        quantizer = Quantizer(type="binary", binary=BinaryQuantizerParams(
+            distance_metric="hamming", trigger_threshold=BQ_TRIGGER))
     # bench.py's switch: the host generator takes minutes past 2^28 values
     on_card = args.n * args.dim >= 2**28 and device.type == "cuda"
     make = functools.partial(embedding_like_device, device=device) if on_card else embedding_like
@@ -521,7 +560,7 @@ def main(argv=None, keep: Optional[dict] = None) -> int:
         ds, k=args.k, batch=args.batch, num_probes=args.probes, device=device,
         profile=device.type == "cuda", keep=keep, quantizer=quantizer,
         sweep=[int(p) for p in args.sweep.split(",") if p], engine=args.engine,
-        **({"search_size": args.search_size} if vamana else
+        **({"search_size": args.search_size, "build_mode": args.build} if vamana else
            {"assign_copies": 2 if args.copies is None else args.copies}),
     )
     out["data_s"] = data_s

@@ -1,6 +1,11 @@
 """Operands for holding K10 and K11 against their plain versions, and their
 least traffic.
 
+K10's quantized routes take codes (:func:`bit_codes`, :func:`adc_codes`):
+packed bits of a graph's vectors and its queries, or PQ codes with ADC
+tables, integer-valued (every sum exact in f32, so a route must equal its
+plain version bit for bit) or real-valued.
+
 Random graphs, queries and prune pools made from a numpy seed, for the card
 tests (``tests/test_torch_cuda.py``) and ``chip_smoke.py``; the operands of
 K10 and K11 at the Vamana cell's shapes on a built index (:func:`cell_walks`,
@@ -95,12 +100,43 @@ def prune_pools(vectors: torch.Tensor, b: int, p: int, metric: str, *, seed: int
     return d.contiguous(), i.contiguous(), self_t
 
 
+def bit_codes(vectors: torch.Tensor, queries: torch.Tensor, *, zero_rows: float = 0.0, seed: int = 0):
+    """K10's bit-route operands from a graph: the vectors' and the queries'
+    signs packed (bit i set where x_i > 0; the JAX package's u32 words as
+    int32), with a share ``zero_rows`` of the code rows and of the query
+    codes all zero (jaccard's union == 0). Hamming distances are integers
+    and tie across many ids. → (codes i32[cap, W], query codes i32[B, W])."""
+    from semadb_tpu_torch.ops.bitops import binarize
+
+    codes = binarize(vectors, torch.zeros((), device=vectors.device), vectors.shape[1]).contiguous()
+    qcodes = binarize(queries, torch.zeros((), device=queries.device), queries.shape[1]).contiguous()
+    if zero_rows:
+        rng = np.random.default_rng(seed)
+        codes[torch.from_numpy(rng.random(codes.shape[0]) < zero_rows).to(codes.device)] = 0
+        qcodes[torch.from_numpy(rng.random(qcodes.shape[0]) < zero_rows).to(qcodes.device)] = 0
+    return codes, qcodes
+
+
+def adc_codes(cap: int, b: int, m: int, k: int, *, integer: bool, seed: int, device):
+    """K10's ADC-route operands: PQ codes u8[cap, M] uniform in [0, k) and
+    ADC tables f32[B, M, K], integer-valued in [0, 16] (every sum of M <= 96
+    terms exact in f32; many ties) or uniform reals in [0, 4)."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, k, (cap, m)).astype(np.uint8)
+    if integer:
+        tables = rng.integers(0, 17, (b, m, k)).astype(np.float32)
+    else:
+        tables = (rng.random((b, m, k)) * 4).astype(np.float32)
+    return torch.from_numpy(codes).to(device), torch.from_numpy(tables).to(device)
+
+
 def k10_least_bytes(vectors, adjacency, queries, search_size: int, expand_width: int, max_hops: int, metric: str,
-                    seeds=None, track_visited: bool = True) -> dict:
+                    seeds=None, track_visited: bool = True, codes=None) -> dict:
     """The bytes a K10 call on these operands must move: each distinct row
     that the batch's walks score (the start node, the seeds, the neighbours
-    of every expanded node) and each distinct adjacency row they read, once
-    for the whole batch, plus the queries and seeds read and the outputs
+    of every expanded node: its f32 row, or with ``codes`` its code row) and
+    each distinct adjacency row they read, once for the whole batch, plus
+    the queries (or their codes or tables) and seeds read and the outputs
     written once. The rows come from a run of the plain version whose merges
     are watched: every id merged in was scored, every expanded id's row was
     read. Returns the bytes with the distinct and the total counts."""
@@ -119,15 +155,20 @@ def k10_least_bytes(vectors, adjacency, queries, search_size: int, expand_width:
     vamana_search.merge_sorted = watched
     try:
         out = vamana_search.beam_search_plain(vectors, adjacency, queries, search_size, expand_width, max_hops,
-                                              metric, seeds, track_visited)
+                                              metric, seeds, track_visited, codes)
     finally:
         vamana_search.merge_sorted = merge
     b = queries.shape[0]
     v = vamana_search.ring_size(search_size, expand_width)
     rows, nodes = int(scored.sum()), int(expanded.sum())
-    io = queries.numel() * 4 + (0 if seeds is None else seeds.numel() * 4) + b * (search_size + v) * 8 + b * 12
+    if codes is None:
+        row_bytes, query_bytes = dim * 4, queries.numel() * 4
+    else:
+        row_bytes = codes.codes.shape[1] * codes.codes.element_size()
+        query_bytes = codes.prepared.numel() * codes.prepared.element_size()
+    io = query_bytes + (0 if seeds is None else seeds.numel() * 4) + b * (search_size + v) * 8 + b * 12
     total_nodes, total_rows = (int(x) for x in out.counts.sum(0).tolist())
-    return {"bytes": rows * dim * 4 + nodes * degree * 4 + io, "distinct_rows_scored": rows,
+    return {"bytes": rows * row_bytes + nodes * degree * 4 + io, "distinct_rows_scored": rows,
             "distinct_nodes_expanded": nodes, "rows_scored": total_rows + b, "nodes_expanded": total_nodes}
 
 

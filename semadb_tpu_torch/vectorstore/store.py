@@ -59,6 +59,9 @@ class QuantConfig:
     num_centroids: int = 256
     # OPQ: learn an orthonormal rotation before the subvector split
     opq: bool = False
+    # The user's index metric is hamming or jaccard (a forced binary store):
+    # a search returns the bit distances and never reranks in a float metric
+    user_bit_metric: bool = False
 
     @classmethod
     def from_params(cls, q: Optional[Quantizer], dim: int, metric: str) -> "QuantConfig":
@@ -67,7 +70,7 @@ class QuantConfig:
         if metric in (C.DISTANCE_HAMMING, C.DISTANCE_JACCARD):
             return cls(
                 kind=BINARY, dim=dim, metric=C.DISTANCE_EUCLIDEAN,
-                bit_metric=metric, threshold=0.5,
+                bit_metric=metric, threshold=0.5, user_bit_metric=True,
             )
         if q is None or q.type == C.QUANTIZER_NONE:
             return cls(kind=PLAIN, dim=dim, metric=metric)

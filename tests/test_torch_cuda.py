@@ -905,3 +905,165 @@ def test_vamana_index_on_card_matches_cpu(cuda):
         d_card, i_card = on_card.search_batch(queries, 10, filter_mask=fm)
         d_cpu, i_cpu = on_cpu.search_batch(queries, 10, filter_mask=fm)
         assert np.array_equal(i_card, i_cpu) and np.array_equal(d_card, d_cpu)
+
+
+# K10's quantized routes. The bit route scores packed signs of an integer
+# graph's vectors (hamming: integers; jaccard: one IEEE division, 0 where the
+# union is empty: a share of the code rows and query codes is all zero); the
+# ADC route random PQ codes through integer-valued tables. Both must equal
+# the plain version bit for bit, ties (constant here) falling by (d, id).
+# (B, L, W, R, width, route, bit metric or K, seeds, track_visited); width is
+# D for the bit route (W = ceil(D / 32) words: D = 100 is 4 words, D = 200
+# is 7, off the 16-byte loads; D = 40 is 2) and M for the ADC route (M = 96
+# at K = 256 is a 96 KB table, read through L2; M = 12 is off the 8-byte
+# loads). The first of each route is its cell's query walk; the rest the
+# boundaries of pick_geometry, as K10_BOUNDARY_CASES, with and without the
+# ring (without it, the hole cut).
+K10_CODE_CASES = [
+    (8192, 75, 2, 64, 128, "bit", "hamming", True, True), (7, 40, 2, 64, 128, "bit", "jaccard", True, False),
+    (33, 75, 8, 64, 100, "bit", "hamming", False, True), (33, 75, 2, 64, 200, "bit", "jaccard", True, True),
+    (9, 129, 2, 64, 40, "bit", "hamming", True, False), (1025, 75, 8, 64, 128, "bit", "hamming", False, True),
+    (5, 40, 1, 129, 128, "bit", "jaccard", False, True), (17, 1, 1, 32, 128, "bit", "hamming", False, True),
+    (4097, 40, 2, 64, 128, "bit", "hamming", True, False), (33, 75, 2, 64, 128, "bit", "hamming", False, False),
+    (8192, 75, 2, 64, 8, "adc", 256, True, True), (33, 75, 2, 64, 4, "adc", 256, True, False),
+    (33, 75, 8, 64, 16, "adc", 256, False, True), (7, 40, 2, 64, 96, "adc", 256, True, True),
+    (9, 129, 2, 64, 12, "adc", 16, True, False), (1025, 75, 8, 64, 8, "adc", 256, False, True),
+    (4097, 40, 2, 64, 8, "adc", 256, True, False), (17, 1, 1, 32, 8, "adc", 256, False, True),
+    (5, 40, 1, 129, 8, "adc", 256, False, False),
+]
+
+
+def _k10_code_operands(cuda, b, L, R, width, route, param, seeded, integer=True, seed=0):
+    from semadb_tpu_torch.ops.kernels import vamana_search
+    from semadb_tpu_torch.tools import vamana_operands as vo
+
+    dim = width if route == "bit" else 16
+    v, a = vo.random_graph(3000, dim, R, integer=True, metric="euclidean", seed=seed + b + L, device=cuda)
+    q = vo.random_queries(b, dim, integer=True, metric="euclidean", seed=seed + R, device=cuda)
+    if route == "bit":
+        c, p = vo.bit_codes(v, q, zero_rows=0.05 if param == "jaccard" else 0.0, seed=seed + L)
+        codes = vamana_search.Codes("binary", c, p, param)
+    else:
+        c, p = vo.adc_codes(v.shape[0], b, width, param, integer=integer, seed=seed + b, device=cuda)
+        codes = vamana_search.Codes("product", c, p)
+    seeds = vo.random_seeds(b, L, v.shape[0], seed=seed + b, device=cuda) if seeded else None
+    return v, a, q, seeds, codes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,L,W,R,width,route,param,seeded,track", K10_CODE_CASES)
+def test_vamana_beam_search_codes_match_plain(cuda, b, L, W, R, width, route, param, seeded, track):
+    from semadb_tpu_torch.ops.kernels import vamana_search
+
+    v, a, q, seeds, codes = _k10_code_operands(cuda, b, L, R, width, route, param, seeded)
+    before = dict(vamana_search.LAUNCHES_BY)
+    got = vamana_search.vamana_beam_search(v, a, q, L, W, 0, "euclidean", seeds=seeds, track_visited=track,
+                                           codes=codes)
+    torch.cuda.synchronize()
+    assert vamana_search.LAUNCHES_BY[route] == before.get(route, 0) + 1
+    want = vamana_search.beam_search_plain(v, a, q, L, W, 0, "euclidean", seeds=seeds, track_visited=track,
+                                           codes=codes)
+    for name, g, w in zip(got._fields, _k10_out(got), _k10_out(want)):
+        assert torch.equal(g, w), (name, (g != w).nonzero()[:5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 8, 16, 96])
+def test_vamana_beam_search_adc_real_tables(cuda, m):
+    """Real-valued tables: the kernel's list distances are the plain ADC sums
+    of its ids within 1e-6 of the summed terms, and its top-10 recall against
+    the exact ADC ranking within 0.01 of the plain version's (walks may part
+    at a near-tie)."""
+    from semadb_tpu_torch.ops.kernels import vamana_search
+    from semadb_tpu_torch.vectorstore.store import pq_gather_distance, pq_scan_distance
+
+    v, a, q, _, codes = _k10_code_operands(cuda, 256, 40, 64, m, "adc", 256, False, integer=False, seed=m)
+    got = vamana_search.vamana_beam_search(v, a, q, 40, 2, 0, "euclidean", track_visited=True, codes=codes)
+    want = vamana_search.beam_search_plain(v, a, q, 40, 2, 0, "euclidean", track_visited=True, codes=codes)
+    ok = got.cand_ids >= 0
+    ref = pq_gather_distance(codes.codes, got.cand_ids.clamp(min=0), codes.prepared, 256)
+    assert float((got.cand_dists - ref).abs()[ok].max()) <= 1e-6 * 4 * m
+    full = pq_scan_distance(codes.codes, torch.ones(v.shape[0], dtype=torch.bool, device=cuda), codes.prepared,
+                            256)
+    full[:, :2] = float("inf")
+    exact = torch.topk(full, 10, dim=1, largest=False).indices
+
+    def recall(out):
+        d, i = sort_by_distance(out.cand_dists, out.cand_ids.masked_fill(out.cand_ids == 1, -1))
+        return float((i[:, :10, None] == exact[:, None, :]).any(-1).float().mean())
+
+    assert abs(recall(got) - recall(want)) <= 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["binary", "hamming"])
+def test_vamana_quantized_index_on_card_matches_cpu(cuda, kind):
+    """A binary quantizer with a fixed threshold (fitted from the start) and
+    the user hamming metric on 0/1 vectors, the same writes on the card (K10's
+    bit route, K11, K4) and on the CPU: equal graphs and codes, equal
+    searches, filtered and not."""
+    from semadb_tpu_torch.index.vamana import IndexVamana
+    from semadb_tpu_torch.models.schema import VectorVamanaParams
+    from semadb_tpu_torch.ops.kernels import ivf_rerank, vamana_search
+
+    rng = np.random.default_rng(4)
+    if kind == "hamming":
+        vecs = rng.integers(0, 2, (3000, 64)).astype(np.float32)
+        params = VectorVamanaParams(vector_size=64, distance_metric="hamming", search_size=40, degree_bound=32)
+        queries = rng.integers(0, 2, (64, 64)).astype(np.float32)
+    else:
+        vecs = rng.integers(-8, 9, (3000, 64)).astype(np.float32)
+        q = Quantizer(type="binary", binary=BinaryQuantizerParams(threshold=0.5, distance_metric="hamming"))
+        params = VectorVamanaParams(vector_size=64, distance_metric="euclidean", search_size=40, degree_bound=32,
+                                    quantizer=q)
+        queries = rng.integers(-8, 9, (64, 64)).astype(np.float32)
+    on_card, on_cpu = IndexVamana(params, cuda), IndexVamana(params, torch.device("cpu"))
+    start = rng.integers(0, 2, 64).astype(np.float32)
+    for idx in (on_card, on_cpu):
+        idx.state.vectors[1] = torch.from_numpy(start)
+        idx.insert_bulk(np.arange(2, 3002), vecs)
+        idx.insert_update_delete([(i, None) for i in range(2, 300, 3)] + [(i, vecs[i + 1]) for i in range(400, 450)])
+    for name in ("vectors", "adjacency", "exists"):
+        assert torch.equal(getattr(on_card, name).cpu(), getattr(on_cpu, name)), name
+    assert torch.equal(on_card.store.state.codes.cpu(), on_cpu.store.state.codes)
+    before = (vamana_search.LAUNCHES_BY["bit"], ivf_rerank.LAUNCHES)
+    for fm in (None, np.arange(on_cpu.capacity) % 2 == 0):
+        d_card, i_card = on_card.search_batch(queries, 10, filter_mask=fm)
+        d_cpu, i_cpu = on_cpu.search_batch(queries, 10, filter_mask=fm)
+        if kind == "hamming" or fm is not None:
+            assert np.array_equal(i_card, i_cpu) and np.array_equal(d_card, d_cpu)
+        else:  # K4's rerank: exact integer distances, ties in any order
+            full = ((queries[:, None, :] - on_cpu.vectors.numpy()[None]) ** 2).sum(-1)
+            for b in range(len(queries)):
+                errs = tie_rule_errors(d_cpu[b], i_cpu[b].tolist(), d_card[b], i_card[b].tolist(), full[b])
+                assert not errs, (b, errs[:3])
+    assert vamana_search.LAUNCHES_BY["bit"] >= before[0] + 2
+    assert ivf_rerank.LAUNCHES == before[1] + (0 if kind == "hamming" else 1)
+
+
+@pytest.mark.cuda
+def test_vamana_pool_build_on_card(cuda):
+    """The pool build on the card (its products, K11, the backedges): the
+    graph's invariants and recall@10 >= 0.98, as on the CPU."""
+    from semadb_tpu_torch.index.vamana import IndexVamana
+    from semadb_tpu_torch.models.schema import VectorVamanaParams
+    from semadb_tpu_torch.tools.datasets import embedding_like
+
+    n = 20000
+    ds = embedding_like(n, 32, 256, latent=16, seed=9, spread=0.5)
+    idx = IndexVamana(VectorVamanaParams(vector_size=32, distance_metric="euclidean", search_size=75,
+                                         degree_bound=32, alpha=1.2), cuda)
+    idx.insert_bulk(np.arange(2, n + 2), ds.train, build_mode="pool")
+    assert "pass2.0_s" in idx.build_seconds
+    d = ((ds.test[:, None, :].astype(np.float64) - ds.train[None].astype(np.float64)) ** 2).sum(-1)
+    gt = np.argsort(d, 1)[:, :10] + 2
+    _, ids = idx.search_batch(ds.test, 10, search_size=75)
+    assert np.mean([len(set(ids[b]) & set(gt[b])) / 10 for b in range(len(gt))]) >= 0.98
+    adj = idx.adjacency.cpu().numpy()
+    ex = idx.exists.cpu().numpy()
+    rows = adj[2 : n + 2]
+    assert ((rows == -1) | ex[np.clip(rows, 0, len(ex) - 1)]).all()
+    assert not (rows == np.arange(2, n + 2)[:, None]).any()
+    from semadb_tpu_torch.index.vamana.build import reachable_mask
+
+    assert bool((reachable_mask(idx.state) | ~idx.exists).all())

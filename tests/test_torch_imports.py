@@ -5,7 +5,8 @@ An ``ast`` walk of ``semadb_tpu_torch/`` and ``chip_smoke.py`` finds no
 imports every module of the port and runs a tiny slice on ``cpu``. The host
 modules the port keeps its own copies of (``models/``, ``store/``,
 ``utils/{compare,dirty,grow,itemcache}.py``, ``index/{inverted,text}.py``,
-``httpapi/v1.py``, ``csrc/kvstore.cpp``) stay the same as the JAX
+``httpapi/v1.py``, ``tools/{loadrand,dumpgraph}.py``,
+``csrc/kvstore.cpp``) stay the same as the JAX
 package's originals, apart from their imports and the store's native build;
 so do the definitions it copies from ``utils/pipeline.py`` (all but the
 readback), ``tools/datasets.py`` (the host generators and ground truth),
@@ -108,6 +109,8 @@ def _copies():
     yield "index/inverted.py"
     yield "index/text.py"
     yield "httpapi/v1.py"
+    yield "tools/loadrand.py"
+    yield "tools/dumpgraph.py"
 
 
 class _Normalize(ast.NodeTransformer):

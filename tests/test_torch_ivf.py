@@ -567,11 +567,12 @@ def test_jax_written_ivf_shard_opens_in_port(tmp_path, journal):
         assert {str(uuid.UUID(int=4)), str(uuid.UUID(int=1201))}.isdisjoint(p["_id"] for p in grow)
 
 
-def test_product_quantizer_on_ivf_is_admitted_and_vamana_refused():
+def test_product_quantizer_on_ivf_and_vamana_is_admitted_and_served():
     """The manager admits a product quantizer on vectorIVF and the engine
     takes it (``tests/test_torch_ivfpq.py`` holds it against the JAX
-    package); a plain vectorVamana is admitted since the Vamana slice, and a
-    quantized one is refused, naming the slice that brings it."""
+    package); a vectorVamana with a product or binary quantizer, or the
+    hamming metric, is admitted too, and its engine serves it: the store is
+    the quantizer's, fitted at its trigger, and searches answer."""
     schema = port_models.IndexSchema.from_dict({"v": {"type": "vectorIVF", "vectorIVF": {
         "vectorSize": 16, "distanceMetric": "euclidean",
         "quantizer": {"type": "product", "product": {"numCentroids": 16, "numSubVectors": 4}}}}})
@@ -581,10 +582,26 @@ def test_product_quantizer_on_ivf_is_admitted_and_vamana_refused():
     check_supported(port_models.IndexSchema.from_dict(IVF_SCHEMA))
     check_supported(port_models.IndexSchema.from_dict({"v": {"type": "vectorVamana", "vectorVamana": {
         "vectorSize": 4, "distanceMetric": "euclidean"}}}))
-    with pytest.raises(ValidationError, match="vectorVamana.*slice 14"):
-        check_supported(port_models.IndexSchema.from_dict({"v": {"type": "vectorVamana", "vectorVamana": {
-            "vectorSize": 16, "distanceMetric": "euclidean",
-            "quantizer": {"type": "product", "product": {"numCentroids": 16, "numSubVectors": 4}}}}}))
+    from semadb_tpu_torch.index.vamana import IndexVamana
+
+    rng = np.random.default_rng(2)
+    vecs = rng.standard_normal((1100, 16)).astype(np.float32)
+    for entry, kind in (
+        ({"quantizer": {"type": "product", "product": {"numCentroids": 16, "numSubVectors": 4,
+                                                       "triggerThreshold": 1000}}}, "product"),
+        ({"quantizer": {"type": "binary", "binary": {"threshold": 0.0}}}, "binary"),
+        ({"distanceMetric": "hamming"}, "binary"),
+    ):
+        schema = port_models.IndexSchema.from_dict({"v": {"type": "vectorVamana", "vectorVamana": {
+            "vectorSize": 16, "distanceMetric": "euclidean", "searchSize": 36, "degreeBound": 16, **entry}}})
+        check_supported(schema)
+        vidx = IndexVamana(schema.get("v").vector_vamana, CPU)
+        assert vidx.store.config.kind == kind
+        data = (vecs > 0).astype(np.float32) if "distanceMetric" in entry else vecs
+        vidx.insert_update_delete(zip(range(2, 1102), data))
+        assert vidx.store.fitted
+        d, i = vidx.search_batch(data[:8], 5)
+        assert (i[:, 0] >= 2).all() and np.isfinite(d).all()
 
 
 def test_ground_truth_on_device_matches_jax_and_host(monkeypatch):

@@ -275,18 +275,15 @@ def test_jax_replays_port_journal(tmp_path):
     shard.close()
 
 
-def test_port_admits_fused_and_pq_and_refuses_vamana(tmp_path):
-    """A quantized vectorVamana is refused by name (slice 14 brings it);
-    vectorFused, a product quantizer and a plain vectorVamana, ported since,
-    are admitted."""
+def test_port_admits_fused_pq_and_quantized_vamana_and_serves_them(tmp_path):
+    """vectorFused, a product quantizer, a plain vectorVamana and a quantized
+    one are admitted, and the quantized vectorVamana serves points over HTTP:
+    a point finds itself first."""
     node, srv, base = _start("port", str(tmp_path))
     try:
         vamana = {"v": {"type": "vectorVamana", "vectorVamana": {
             "vectorSize": 4, "distanceMetric": "euclidean",
             "quantizer": {"type": "binary", "binary": {"threshold": 0.0}}}}}
-        r = requests.post(base, json={"id": "nope", "indexSchema": vamana}, headers=HEADERS)
-        assert r.status_code == 400 and "vectorVamana" in r.json()["error"], r.text
-        assert "slice 14" in r.json()["error"], r.text
         for name, schema in (
             ("fusedcol", {"v": {"type": "vectorFused", "vectorFused": {"views": [
                 {"vectorSize": 4, "distanceMetric": "euclidean"}, {"vectorSize": 4, "distanceMetric": "dot"}]}},
@@ -295,11 +292,22 @@ def test_port_admits_fused_and_pq_and_refuses_vamana(tmp_path):
                     "quantizer": {"type": "product", "product": {"numCentroids": 16, "numSubVectors": 2}}}}}),
             ("vamanacol", {"v": {"type": "vectorVamana", "vectorVamana": {"vectorSize": 4,
                                                                           "distanceMetric": "euclidean"}}}),
+            ("bqcol", vamana),
         ):
             r = requests.post(base, json={"id": name, "indexSchema": schema}, headers=HEADERS)
             assert r.status_code == 200, r.text
         assert sorted(c["id"] for c in requests.get(base, headers=HEADERS).json()["collections"]) == [
-            "fusedcol", "pqcol", "vamanacol"]
+            "bqcol", "fusedcol", "pqcol", "vamanacol"]
+        rng = np.random.default_rng(0)
+        vecs = rng.standard_normal((50, 4)).astype(np.float32)
+        pts = [{"_id": str(uuid.UUID(int=i + 1)), "v": vecs[i].tolist()} for i in range(50)]
+        r = requests.post(f"{base}/bqcol/points", json={"points": pts}, headers=HEADERS)
+        assert r.status_code == 200, r.text
+        r = requests.post(f"{base}/bqcol/points/search", json={"query": {"property": "v", "vectorVamana": {
+            "vector": vecs[7].tolist(), "operator": "near", "limit": 3}}}, headers=HEADERS)
+        assert r.status_code == 200, r.text
+        top = r.json()["points"][0]
+        assert top["_id"] == str(uuid.UUID(int=8)) and abs(top["_distance"]) < 1e-5
     finally:
         srv.shutdown()
         node.close()

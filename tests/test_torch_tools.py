@@ -5,7 +5,9 @@ flat collection that ``chip_smoke.py`` checks on the card; here it takes
 600 points (100 over HTTP, the rest through ``ClusterNode.insert_points``)
 into several small shards, and every HTTP search must match the numpy
 brute-force hamming scan by the tie rule (exact distances). The profiler
-refuses to run without a CUDA device.
+refuses to run without a CUDA device. The copied tools: ``loadrand`` loads
+a port server, and ``dumpgraph`` writes the JAX tool's CSV byte for byte for
+a shard file either package wrote.
 """
 
 import sys
@@ -86,3 +88,56 @@ def test_profiler_refuses_without_cuda(monkeypatch):
     monkeypatch.setattr(sys, "argv", ["profile_slice"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert profile_slice.main() == 1
+
+
+def test_loadrand_drives_a_port_server(tmp_path, capsys):
+    """The port's copy of ``tools/loadrand.py`` parses its arguments and
+    loads a vectorVamana collection of the port's server (on ``cpu``) in
+    batches: the points are there afterwards."""
+    from semadb_tpu_torch.tools import loadrand
+
+    cfg = bq.slice_config(str(tmp_path))
+    with bq.serving(cfg, CPU) as srv:
+        root = srv.base.split("/v2/")[0]
+        assert loadrand.main(["--base", root, "--collection", "loadtest", "--dim", "8", "--count", "25",
+                              "--batch", "10", "--user", bq.USER["X-User-Id"], "--plan", "BASIC"]) == 0
+        assert "inserted 25/25" in capsys.readouterr().out
+        hits = bq.http_json(srv.base, "POST", "/loadtest/points/search", {"query": {
+            "property": "vector", "vectorVamana": {"vector": [0.5] * 8, "operator": "near", "limit": 30}},
+            "limit": 30})["points"]
+        assert len(hits) == 25
+
+
+def test_dumpgraph_equals_the_jax_one(tmp_path, capsys):
+    """The port's copy of ``tools/dumpgraph.py`` writes the JAX tool's CSV
+    for the same shard file: one written by the JAX package, then one the
+    port wrote."""
+    import uuid
+
+    import semadb_tpu.models as jax_models
+    import semadb_tpu.shard  # noqa: F401  (the JAX tool needs the shard package imported first)
+    import semadb_tpu_torch.models as port_models
+    from semadb_tpu.shard import Shard as JaxShard
+    from semadb_tpu.store import open_store as jax_open_store
+    from semadb_tpu.tools import dumpgraph as jax_dumpgraph
+    from semadb_tpu_torch.shard import Shard
+    from semadb_tpu_torch.store import open_store
+    from semadb_tpu_torch.tools import dumpgraph
+
+    schema = {"v": {"type": "vectorVamana", "vectorVamana": {"vectorSize": 8, "distanceMetric": "euclidean",
+                                                             "searchSize": 24, "degreeBound": 8}}}
+    vecs = np.random.default_rng(3).standard_normal((300, 8)).astype(np.float32)
+    for pkg, models, shard_cls, opener in ((0, jax_models, JaxShard, jax_open_store),
+                                           (1, port_models, Shard, open_store)):
+        path = str(tmp_path / f"s{pkg}.sdb")
+        col = models.Collection(user_id="u1", id="c1", index_schema=models.IndexSchema.from_dict(schema),
+                                user_plan=models.UserPlan())
+        sh = shard_cls(opener(path), col, CPU) if pkg else shard_cls(opener(path), col)
+        sh.insert_points([models.Point.from_map({"v": vecs[i].tolist()}, uuid.UUID(int=i + 1)) for i in range(300)])
+        sh.flush()
+        (sh.close if pkg else sh.db.close)()
+        out_j, out_p = str(tmp_path / f"j{pkg}.csv"), str(tmp_path / f"p{pkg}.csv")
+        assert jax_dumpgraph.dump_graph(path, "v", out_j) == dumpgraph.dump_graph(path, "v", out_p) == 301
+        assert open(out_j).read() == open(out_p).read()
+        lines = open(out_p).read().splitlines()
+        assert lines[0].startswith("1,") and all(len(line.split(",")) <= 9 for line in lines)

@@ -254,18 +254,30 @@ def test_snapshot_writes_only_dirty_chunks(tmp_path, monkeypatch):
     store.close()
 
 
-def test_quantized_and_pool_builds_raise():
-    """What slice 14 brings is refused by name, not served wrong."""
+def test_quantized_and_pool_builds_are_admitted_and_served():
+    """A binary quantizer, the hamming metric and the pool build, once
+    refused, are served: the stores fit (a fixed threshold from the start),
+    points find themselves; a pool build below TWO_PASS_MIN points takes the
+    two passes, as the JAX package's does."""
     from semadb_tpu_torch.models.quantizer import BinaryQuantizerParams, Quantizer
 
+    rng = np.random.default_rng(8)
+    vecs = rng.standard_normal((60, 8)).astype(np.float32)
     q = Quantizer(type="binary", binary=BinaryQuantizerParams(threshold=0.0))
-    with pytest.raises(NotImplementedError, match="slice 14"):
-        port_vamana.IndexVamana(PortParams(vector_size=8, distance_metric="euclidean", quantizer=q), CPU)
-    with pytest.raises(NotImplementedError, match="slice 14"):
-        port_vamana.IndexVamana(PortParams(vector_size=8, distance_metric="hamming"), CPU)
+    for params, data in (
+        (PortParams(vector_size=8, distance_metric="euclidean", quantizer=q), vecs),
+        (PortParams(vector_size=8, distance_metric="hamming"), (vecs > 0).astype(np.float32)),
+    ):
+        idx = port_vamana.IndexVamana(params, CPU)
+        assert idx.store.fitted and idx.store.state.codes.shape[0] == idx.capacity
+        idx.insert_update_delete(zip(range(2, 62), data))
+        d, i = idx.search_batch(data[:4], 3)
+        assert (d[:, 0] == 0).all() and set(i[:, 0]) <= set(range(2, 62))
     idx = port_vamana.IndexVamana(PortParams(vector_size=8, distance_metric="euclidean"), CPU)
-    with pytest.raises(NotImplementedError, match="slice 14"):
-        idx.insert_bulk(np.arange(2, 10), np.zeros((8, 8), np.float32), build_mode="pool")
+    idx.insert_bulk(np.arange(2, 62), vecs, build_mode="pool")
+    assert "pass1_s" in idx.build_seconds
+    _, i = idx.search_batch(vecs[:4], 1)
+    assert list(i[:, 0]) == [2, 3, 4, 5]
 
 
 def test_annbench_runs_the_vamana_engine_on_cpu(capsys):
@@ -282,4 +294,4 @@ def test_annbench_runs_the_vamana_engine_on_cpu(capsys):
     assert {"pass1_s", "pass2_s", "pass1_overflow_rounds"} <= set(out["build_split_s"])
     assert out["hops_per_query"] > 1
     with pytest.raises(SystemExit):
-        annbench.main(["--engine", "vamana", "--device", "cpu", "--quantizer", "product"])
+        annbench.main(["--engine", "vamana", "--device", "cpu", "--sweep", "48"])

@@ -234,6 +234,50 @@ def test_k10_merge_model_in_whole_walks(monkeypatch, metric, L, W, track, seeded
     _equal(got, want)
 
 
+# The quantized routes' tie pattern: integer hamming and ADC distances and
+# jaccard's few distinct fractions, each shared by many ids
+QUANT_VALUES = {
+    "hamming": np.arange(0, 9, dtype=np.float32),
+    "jaccard": np.array([0.0, 0.25, 1 / 3, 0.5, 0.6, 0.75, 1.0], np.float32),
+    "adc": np.arange(0, 33, 4, dtype=np.float32),
+}
+
+
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("kind", list(QUANT_VALUES))
+@pytest.mark.parametrize("L,n", [(12, 8), (40, 128), (75, 129), (75, 512)])
+def test_k10_merge_model_on_quantized_ties(L, n, compact, kind):
+    """Heavy ties across ids, as the bit and ADC routes make them: the (d, id)
+    keys must order them so that an id's copies land together and dedup."""
+    rng = np.random.default_rng(L * 100 + n + compact)
+    for _ in range(40):
+        ops = merge_operands(rng, L, n, compact_like=bool(rng.random() < 0.5), values=QUANT_VALUES[kind])
+        _equal(k10_merge_model(*ops, L, compact), k10.merge_sorted(*ops, L, compact))
+
+
+@pytest.mark.parametrize("route", ["hamming", "jaccard", "adc"])
+@pytest.mark.parametrize("L,W,track,seeded", [(40, 2, False, True), (40, 2, True, True), (12, 8, True, False),
+                                              (75, 2, False, False)])
+def test_k10_merge_model_in_quantized_walks(monkeypatch, route, L, W, track, seeded):
+    """The model in place of merge_sorted inside the plain walk on each
+    quantized route: packed signs by hamming or jaccard (some all-zero codes),
+    PQ codes through integer-valued tables; with and without the ring."""
+    v, a = vo.random_graph(400, 64, 16, integer=True, metric="euclidean", seed=L + W, device="cpu")
+    q = vo.random_queries(6, 64, integer=True, metric="euclidean", seed=W, device="cpu")
+    if route == "adc":
+        c, p = vo.adc_codes(v.shape[0], 6, 8, 16, integer=True, seed=L, device="cpu")
+        codes = k10.Codes("product", c, p)
+    else:
+        c, p = vo.bit_codes(v, q, zero_rows=0.1, seed=L)
+        codes = k10.Codes("binary", c, p, route)
+    seeds = vo.random_seeds(6, 20, v.shape[0], seed=L, device="cpu") if seeded else None
+    args = (v, a, q, L, W, 0, "euclidean", seeds, track, codes)
+    want = k10.beam_search_plain(*args)
+    monkeypatch.setattr(k10, "merge_sorted", k10_merge_model)
+    got = k10.beam_search_plain(*args)
+    _equal(got, want)
+
+
 def k11_panel_model(cand_d, cand_i, self_ids, vectors, degree, r_stop, alpha, metric, panel=PANEL):
     """K11's panels: the next ``panel`` live candidates against every later
     live one as kill masks, the greedy over the panel by the masks alone,
