@@ -286,6 +286,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    collection (no deleted id back, 20 updated points each find themselves
    at distance 0), a flush, close and reopen (every search the same). K10's
    bit and ADC routes and K4 must have launched.
+22. The mesh fan-out (``shardPlacement: "device"``, ``parallel/fanout.py``
+   and ``cluster/meshsearch.py``). First ``tools/restackbench.py --n
+   1000000 --shards 8`` (an ``embedding_like`` fleet, 8 slots on the card):
+   full against incremental restack seconds; then one mesh batch of 4,096
+   queries, k = 10, the shards' default probes, which must launch K3 and K4
+   on every slot and equal the host fan-out over the same shards (each
+   shard's own search, merged on the host) by the tie rule; the mesh batch's
+   wall time and QPS beside the host fan-out's, and the merge's device time.
+   Then a node with an 8-slot mesh on the card and four ``shardPlacement:
+   "device"`` v2 collections of 20,000 points over HTTP (vectorIVF,
+   vectorVamana, vectorFused, IVF-PQ; 8 shards each): 20 searches each,
+   every one served by the mesh (a fall-back to the host fan-out fails the
+   phase), K3/K4, K10 and K9 launched, the answers held against the host
+   fan-out over the same shards (the tie rule; the Vamana ids' overlap) and
+   numpy's recall; HTTP p50 with the mesh and without; a filtered search
+   on each f32 kind; a write and a search on the incremental restack.
 
 Each kernel's bound is its bytes (each input read once, each output
 written once; for K2 each distinct row once; for K3 each distinct probed
@@ -3131,6 +3147,306 @@ def phase_vamana_quant_http(torch, counted, device, seed: int, n_points: int = H
     return {"recall": recall, "recall_after": recall_after, "launches": launches, "by_route": by_route}
 
 
+# -- the mesh fan-out (shardPlacement "device") -------------------------------------
+
+MESH_SHARDS = 8
+MESH_ARGV = ("--n", "1000000", "--shards", str(MESH_SHARDS), "--data", "embedding", "--queries", "4096")
+MESH_RUNS = 5  # timed mesh batches and host fan-outs, each, in turns
+MESH_MERGE_RUNS = 20
+HTTP_MESH_POINTS = 20_000
+HTTP_MESH_QUERIES = 20
+HTTP_MESH_RECALL = 0.9
+MESH_VAMANA_OVERLAP = 0.98  # of the top-10 ids, mesh against the host fan-out (see phase_mesh_http)
+
+
+def _host_fanout(indices, queries, p: int, k: int):
+    """The host fan-out over a fleet: each shard's own search, then the merge
+    on the host (numpy's lexsort over the shard-major [B, S*k] lists)."""
+    outs = [idx.search_batch_async(queries, k, p) for idx in indices]
+    d = np.concatenate([o[0].cpu().numpy() for o in outs], 1)
+    i = np.concatenate([o[1].cpu().numpy() for o in outs], 1)
+    s = np.repeat(np.arange(len(indices), dtype=np.int32), k)[None, :].repeat(d.shape[0], 0)
+    order = np.lexsort((i, d), axis=-1)[:, :k]
+    return tuple(np.take_along_axis(a, order, 1) for a in (d, i, s))
+
+
+def phase_mesh_fleet(torch, counted, device, seed: int, spread: bool = False) -> dict:
+    """``restackbench`` at its defaults' size, 1M points over 8 shards (an
+    ``embedding_like`` fleet, 8 slots on ``device``, or with ``spread`` over
+    every visible card in turn), then one mesh batch of
+    4,096 queries at k = 10 and the shards' default probes against the host
+    fan-out over the same shards: the mesh's result must equal the merge of
+    each shard's own search by the tie rule (in practice bit for bit)."""
+    from semadb_tpu_torch.ops.topk import tie_rule_errors
+    from semadb_tpu_torch.parallel import fanout
+    from semadb_tpu_torch.tools import restackbench
+
+    keep = {}
+    t0 = time.perf_counter()
+    restackbench.main([*MESH_ARGV, "--device", str(device), *(("--spread",) if spread else ())], keep=keep)
+    bench_s = time.perf_counter() - t0
+    indices, stacked, mesh, test = keep["indices"], keep["stacked"], keep["mesh"], keep["test"]
+    p, k = indices[0]._num_probes(0), LIMIT
+    q = torch.from_numpy(test).to(device)
+    B = q.shape[0]
+    _zero_counts(counted)
+    d, i, s = fanout.sharded_ivf_search(stacked, q, p, k, mesh)
+    torch.cuda.synchronize()
+    launches = {nm: mod.LAUNCHES for nm, mod in counted}
+    if launches["K3"] < MESH_SHARDS or launches["K4"] < MESH_SHARDS:
+        raise AssertionError(f"a mesh batch over {MESH_SHARDS} slots launched {launches}")
+    md, mi, ms = d.cpu().numpy(), i.cpu().numpy(), s.cpu().numpy()
+    hd, hi, hs = _host_fanout(indices, q, p, k)
+    same = np.all(md == hd, 1) & np.all(mi == hi, 1) & np.all(ms == hs, 1)
+    for b in np.nonzero(~same)[0]:
+        qb = test[b].astype(np.float64)
+
+        def dist_of(key, qb=qb):
+            row = indices[key[0]].vectors[key[1]].cpu().numpy().astype(np.float64)
+            return float(((row - qb) ** 2).sum())
+
+        errs = tie_rule_errors(hd[b], list(zip(hs[b].tolist(), hi[b].tolist())), md[b],
+                               list(zip(ms[b].tolist(), mi[b].tolist())), dist_of,
+                               atol=IVF_RTOL * max(1.0, float(hd[b][-1])))
+        if errs:
+            raise AssertionError(f"mesh batch row {b} against the host fan-out: {errs[:3]}")
+    equal_rows = int(same.sum())
+    mesh_ms, host_ms = [], []
+    for _ in range(MESH_RUNS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fanout.sharded_ivf_search(stacked, q, p, k, mesh)
+        out[0].cpu()
+        mesh_ms.append((time.perf_counter() - t1) * 1e3)
+        t1 = time.perf_counter()
+        _host_fanout(indices, q, p, k)
+        host_ms.append((time.perf_counter() - t1) * 1e3)
+    per_slot = [fanout._ivf_slot(st, q, None, p, k, "euclidean") for st in stacked]
+    sh = [torch.full_like(r[1], si) for si, r in enumerate(per_slot)]
+    merge = functools.partial(fanout._allgather_topk, [r[0] for r in per_slot], [r[1] for r in per_slot], sh, k)
+    merge_ms = _device_ms(torch, merge, runs=MESH_MERGE_RUNS)
+    merge_call_ms = _median_call_ms(torch, merge)
+    merge_bytes = 3 * B * MESH_SHARDS * k * 4 + 3 * B * k * 4  # three [B, S*k] lists in, three [B, k] out
+    res = {
+        "shards": MESH_SHARDS, "points": sum(len(idx) for idx in indices), "B": B, "k": k, "probes": p,
+        "bench_s": bench_s,
+        "build_s": keep["build_s"], "full_restack_s": keep["full_restack_s"],
+        "incremental_s": keep["incremental_s"], "mesh_ms": float(np.median(mesh_ms)),
+        "host_ms": float(np.median(host_ms)), "mesh_qps": B / (np.median(mesh_ms) / 1e3),
+        "host_qps": B / (np.median(host_ms) / 1e3), "merge_ms": merge_ms, "merge_call_ms": merge_call_ms,
+        "merge_bound_ms": _bound_ms(merge_bytes), "equal_rows": equal_rows, "launches": launches,
+    }
+    log(f"[mesh-fleet] restackbench {' '.join(MESH_ARGV)} in {bench_s:.1f} s (build {keep['build_s']:.1f} s): "
+        f"full restack {keep['full_restack_s']} s, incremental {keep['incremental_s']} s")
+    log(f"[mesh-fleet] {res['points']} points in {MESH_SHARDS} shards on {mesh.size} slots over {sorted(set(map(str, mesh.slots)))}; "
+        f"B={B}, k={k}, p={p}: mesh batch {res['mesh_ms']} ms ({res['mesh_qps']} QPS), host fan-out "
+        f"{res['host_ms']} ms ({res['host_qps']} QPS), medians of {MESH_RUNS} (all: {mesh_ms} / {host_ms}); "
+        f"{equal_rows} of {B} rows equal to the host fan-out bit for bit, the rest by the tie rule; merge "
+        f"{merge_ms} ms on the device ({merge_call_ms} ms a call, bound {res['merge_bound_ms']}); launches {launches}")
+    return res
+
+
+def phase_mesh_http(torch, counted, device, seed: int, n_points: int = HTTP_MESH_POINTS, cards: int = 0) -> dict:
+    """A node on ``device`` with an 8-slot mesh over it (or, with ``cards``,
+    one slot on each of the first ``cards`` cards); over HTTP v2, one
+    ``shardPlacement: "device"`` collection each of vectorIVF, vectorVamana,
+    vectorFused and IVF-PQ (a shard a slot). Every search must be served by the
+    mesh (a fall-back to the host fan-out fails the phase), launch K3/K4, K10,
+    and K9, and answer as the host fan-out over the same shards (the mesh
+    switched off): equal by the tie rule for IVF, IVF-PQ and fused; for
+    Vamana the mesh walks from the start node where a shard's own search
+    seeds from its entry spread (the JAX package's two planes alike), so the
+    share of equal top-10 ids is held at MESH_VAMANA_OVERLAP and both
+    recalls at HTTP_MESH_RECALL. Then a filtered query, and a write followed
+    by a search that takes the incremental restack."""
+    import uuid
+
+    from semadb_tpu_torch.models import Point
+    from semadb_tpu_torch.ops.kernels import ivf_pq_scan, vamana_search
+    from semadb_tpu_torch.ops.topk import tie_rule_errors
+    from semadb_tpu_torch.parallel.mesh import shard_mesh
+    from semadb_tpu_torch.tools import dbpedia_bq as bq
+    from semadb_tpu_torch.tools.datasets import embedding_like, embedding_like_views
+
+    dim = HTTP_IVF_DIM
+    ds = embedding_like(n_points, dim, HTTP_MESH_QUERIES, spread=0.5, seed=seed + 22)
+    v1, v2 = embedding_like_views(n_points, list(HTTP_VIEWS), HTTP_MESH_QUERIES, seed=seed + 23)
+    rng = np.random.default_rng([seed, 22])
+    ids = [str(uuid.UUID(bytes=rng.bytes(16), version=4)) for _ in range(n_points)]
+    row_of = {pid: r for r, pid in enumerate(ids)}
+    grp = np.arange(n_points) % 3
+    pq = {"type": "product", "product": {"numCentroids": 256, "numSubVectors": 8, "triggerThreshold": 1000}}
+    kinds = {
+        "mivf": ("emb", "vectorIVF", {"type": "vectorIVF", "vectorIVF": {"vectorSize": dim,
+                                                                       "distanceMetric": "euclidean"}}),
+        "mvam": ("emb", "vectorVamana", {"type": "vectorVamana", "vectorVamana": {
+            "vectorSize": dim, "distanceMetric": "euclidean"}}),
+        "mfused": ("emb", "vectorFused", {"type": "vectorFused", "vectorFused": {"views": [
+            {"vectorSize": HTTP_VIEWS[0], "distanceMetric": "euclidean", "weight": 0.7},
+            {"vectorSize": HTTP_VIEWS[1], "distanceMetric": "euclidean", "weight": 0.3}]}}),
+        "mpq": ("emb", "vectorIVF", {"type": "vectorIVF", "vectorIVF": {"vectorSize": dim,
+                                                                       "distanceMetric": "euclidean", "quantizer": pq}}),
+    }
+    x = ds.train.astype(np.float64)
+    f1, f2 = v1.train.astype(np.float64), v2.train.astype(np.float64)
+
+    def truth(name, qi):
+        if name == "mfused":
+            return (0.7 * ((f1 - v1.test[qi].astype(np.float64)) ** 2).sum(-1)
+                    + 0.3 * ((f2 - v2.test[qi].astype(np.float64)) ** 2).sum(-1))
+        return ((x - ds.test[qi].astype(np.float64)) ** 2).sum(-1)
+
+    def body(name, qi, flt=None):
+        key = kinds[name][1]
+        vq = ({"vectors": [v1.test[qi].tolist(), v2.test[qi].tolist()]} if name == "mfused"
+              else {"vector": ds.test[qi].tolist()})
+        vq.update(operator="near", limit=LIMIT)
+        if flt is not None:
+            vq["filter"] = flt
+        return {"query": {"property": "emb", key: vq}, "limit": LIMIT}
+
+    mesh = shard_mesh(cards) if cards else shard_mesh(devices=[device] * MESH_SHARDS)
+    out = {"p50_ms": {}, "recall": {}, "equal": {}}
+    with tempfile.TemporaryDirectory(prefix="semadb_smoke_mesh_") as root:
+        cfg = bq.slice_config(root)
+        with bq.serving(cfg, device, mesh=mesh) as srv:
+            node, ms = srv.node, srv.node._mesh()
+            served, fallbacks = [], []
+            orig_try = node._try_mesh_search
+
+            def watched(col, srs):
+                got = orig_try(col, srs)
+                (served if got is not None else fallbacks).append(col.id)
+                return got
+
+            node._try_mesh_search = watched
+            cols = {}
+            t0 = time.perf_counter()
+            for name, (prop, _, entry) in kinds.items():
+                schema = {prop: entry, "grp": {"type": "integer", "integer": {}}}
+                res = bq.http_json(srv.base, "POST", "", {"id": name, "indexSchema": schema,
+                                                          "shardPlacement": "device"})
+                assert res == {"message": "collection created"}, res
+                col = node.get_collection(bq.USER["X-User-Id"], name)
+                col.user_plan = srv.plan
+                # One call: each shard takes its share at once, so its first
+                # fit is past the product quantizer's trigger
+                pts = [Point.from_map({prop: ([v1.train[r].tolist(), v2.train[r].tolist()] if name == "mfused"
+                                              else ds.train[r].tolist()), "grp": int(grp[r])}, uuid.UUID(ids[r]))
+                       for r in range(n_points)]
+                assert node.insert_points(col, pts) == []
+                col = node.get_collection(bq.USER["X-User-Id"], name)
+                col.user_plan = srv.plan
+                if len(col.shard_ids) != mesh.size:
+                    raise AssertionError(f"{name}: {len(col.shard_ids)} shards, not one a slot")
+                cols[name] = col
+            ingest_s = time.perf_counter() - t0
+            pq_on = [node.shard_manager.do_with_shard(cols["mpq"], sid, lambda sh: next(
+                iter(sh.device_indices.values())).pq_active) for sid in cols["mpq"].shard_ids]
+            if not all(pq_on):
+                raise AssertionError(f"IVF-PQ: the quantizer fit on {sum(pq_on)} of {mesh.size} shards")
+            for name in kinds:  # the first search of each builds its stack
+                bq.http_json(srv.base, "POST", f"/{name}/points/search", body(name, 0))
+            _zero_counts(counted)
+            served.clear()
+            mesh_rows = {name: [] for name in kinds}
+            for name in kinds:
+                lat = []
+                for qi in range(HTTP_MESH_QUERIES):
+                    t1 = time.perf_counter()
+                    res = bq.http_json(srv.base, "POST", f"/{name}/points/search", body(name, qi))
+                    lat.append((time.perf_counter() - t1) * 1e3)
+                    mesh_rows[name].append([(p["_id"], p["_distance"]) for p in res["points"]])
+                out["p50_ms"][name] = {"mesh": float(np.median(lat))}
+            launches = {nm: mod.LAUNCHES for nm, mod in counted}
+            by_route = dict(vamana_search.LAUNCHES_BY)
+            k9_by_entry = dict(ivf_pq_scan.LAUNCHES_BY)
+            if fallbacks or len(served) != len(kinds) * HTTP_MESH_QUERIES:
+                raise AssertionError(f"searches fell back to the host fan-out: {fallbacks}; served {len(served)}")
+            if launches["K3"] <= 0 or launches["K4"] <= 0 or by_route.get("f32", 0) <= 0 or \
+                    k9_by_entry.get("probed", 0) <= 0:
+                raise AssertionError(f"the mesh searches did not launch K3, K4, K10 and K9: {launches}, "
+                                     f"K10 {by_route}, K9 {k9_by_entry}")
+            # The host fan-out over the same shards: the mesh switched off
+            node._mesh_searcher = None
+            host_rows = {name: [] for name in kinds}
+            for name in kinds:
+                lat = []
+                for qi in range(HTTP_MESH_QUERIES):
+                    t1 = time.perf_counter()
+                    res = bq.http_json(srv.base, "POST", f"/{name}/points/search", body(name, qi))
+                    lat.append((time.perf_counter() - t1) * 1e3)
+                    host_rows[name].append([(p["_id"], p["_distance"]) for p in res["points"]])
+                out["p50_ms"][name]["host"] = float(np.median(lat))
+            node._mesh_searcher = ms
+            fallbacks.clear()  # the host fan-out's own searches, made on purpose
+            for name in kinds:
+                hits_m = hits_h = same = 0
+                for qi, (mrow, hrow) in enumerate(zip(mesh_rows[name], host_rows[name])):
+                    dist = truth(name, qi)
+                    top = set(np.argsort(dist, kind="stable")[:LIMIT].tolist())
+                    hits_m += len(top & {row_of[pid] for pid, _ in mrow})
+                    hits_h += len(top & {row_of[pid] for pid, _ in hrow})
+                    same += len({pid for pid, _ in mrow} & {pid for pid, _ in hrow})
+                    for pid, dd in mrow:
+                        if abs(dd - dist[row_of[pid]]) > 1e-4 * max(1.0, abs(dist[row_of[pid]])):
+                            raise AssertionError(f"{name}: mesh distance {dd} of a point at {dist[row_of[pid]]}")
+                    if name != "mvam":
+                        errs = tie_rule_errors([dd for _, dd in hrow], [pid for pid, _ in hrow],
+                                               [dd for _, dd in mrow], [pid for pid, _ in mrow],
+                                               lambda pid: dist[row_of[pid]],
+                                               atol=1e-4 * max(1.0, float(np.abs(dist).max())))
+                        if errs:
+                            raise AssertionError(f"{name}: the mesh against the host fan-out, query {qi}: {errs[:3]}")
+                n = LIMIT * HTTP_MESH_QUERIES
+                out["recall"][name] = {"mesh": hits_m / n, "host": hits_h / n}
+                out["equal"][name] = same / n
+                if min(hits_m, hits_h) / n < HTTP_MESH_RECALL:
+                    raise AssertionError(f"{name}: recall@10 {out['recall'][name]} below {HTTP_MESH_RECALL}")
+            if out["equal"]["mvam"] < MESH_VAMANA_OVERLAP:
+                raise AssertionError(f"vectorVamana: {out['equal']['mvam']} of the mesh's ids are the host's")
+            # One filtered query on each f32 kind, mesh-served, every hit in the filter
+            flt = {"property": "grp", "integer": {"value": 1, "operator": "equals"}}
+            served.clear()
+            for name in ("mivf", "mvam", "mfused"):
+                res = bq.http_json(srv.base, "POST", f"/{name}/points/search", body(name, 1, flt))
+                rows = [row_of[p["_id"]] for p in res["points"]]
+                if len(rows) != LIMIT or any(grp[r] != 1 for r in rows):
+                    raise AssertionError(f"{name}: a filtered search returned {rows}")
+            if len(served) != 3 or fallbacks:
+                raise AssertionError(f"the filtered searches were not mesh-served: {served}, {fallbacks}")
+            # One write, then a search that takes the incremental restack
+            rebuilds, incrementals = [], []
+            orig_build, orig_incr = ms._build_from, ms._try_incremental
+            ms._build_from = lambda *a, **kw: rebuilds.append(1) or orig_build(*a, **kw)
+
+            def incr(*a, **kw):
+                got = orig_incr(*a, **kw)
+                if got is not None:
+                    incrementals.append(1)
+                return got
+
+            ms._try_incremental = incr
+            new_id = str(uuid.UUID(bytes=rng.bytes(16), version=4))
+            newv = ds.test[2] + 1e-3
+            res = bq.http_json(srv.base, "POST", "/mivf/points", {"points": [{"_id": new_id, "emb": newv.tolist(),
+                                                                            "grp": 0}]})
+            t1 = time.perf_counter()
+            res = bq.http_json(srv.base, "POST", "/mivf/points/search", body("mivf", 2))
+            restack_search_ms = (time.perf_counter() - t1) * 1e3
+            if res["points"][0]["_id"] != new_id or rebuilds or not incrementals:
+                raise AssertionError(f"the write: first hit {res['points'][0]['_id']}, rebuilds {len(rebuilds)}, "
+                                     f"incremental restacks {len(incrementals)}")
+            out.update(ingest_s=ingest_s, launches=launches, k10_by_route=by_route, k9_by_entry=k9_by_entry,
+                       restack_search_ms=restack_search_ms, served=len(served))
+    log(f"[mesh-http] {len(kinds)} collections of {n_points} points, {mesh.size} shards each on a mesh over "
+        f"{[str(d) for d in mesh.slots]}, ingested in {ingest_s:.1f} s; {HTTP_MESH_QUERIES} HTTP searches each, every one mesh-served: "
+        f"p50 ms {out['p50_ms']}; recall@10 {out['recall']}; top-10 ids shared with the host fan-out "
+        f"{out['equal']}; launches {launches}, K10 {by_route}, K9 {k9_by_entry}; a write then a search on the "
+        f"incremental restack in {restack_search_ms:.2f} ms")
+    return out
+
+
 def _k10_route_row(cell: dict, qhttp: dict, vcodes: dict) -> dict:
     """The kernels line's row of one of K10's quantized routes, from its
     cell's run (``cell``) and the HTTP phase's launches."""
@@ -3157,6 +3473,18 @@ def _k10_route_row(cell: dict, qhttp: dict, vcodes: dict) -> dict:
         "checked_calls": vcodes["calls"],
         "cell": {key: cell["res"][key] for key in ("recall@10", "qps", "build_s", "search_size") if key in cell["res"]},
     }
+
+
+def run_phase_22(torch, counted, device, args) -> tuple:
+    """Phase 22's two parts, on one card or across ``--mesh-cards``."""
+    cards = args.mesh_cards
+    if cards and torch.cuda.device_count() < cards:
+        raise RuntimeError(f"--mesh-cards {cards}: {torch.cuda.device_count()} cards visible")
+    fleet = _phase("22 the mesh fan-out at 1M x 8", phase_mesh_fleet, torch, counted, device, args.seed,
+                   spread=bool(cards))
+    torch.cuda.empty_cache()
+    http = _phase("22 the mesh fan-out over HTTP", phase_mesh_http, torch, counted, device, args.seed, cards=cards)
+    return fleet, http
 
 
 def _phase(name: str, fn, *args, **kwargs):
@@ -3191,6 +3519,12 @@ def main() -> int:
     parser.add_argument("--k9-baseline", metavar="SOURCE",
                         help="another K9 source (ivf_pq_scan.cu, with any ivf_common.cuh beside it), e.g. the "
                              "parent commit's, checked and timed beside the tree's K9 in phase 11")
+    parser.add_argument("--mesh-only", action="store_true",
+                        help="run the environment, the build and phase 22 only (prints its numbers, not the kernels "
+                             "line)")
+    parser.add_argument("--mesh-cards", type=int, default=0, metavar="N",
+                        help="phase 22 across the first N cards (N >= 2): the fleet's 8 slots over every card in "
+                             "turn, the node's mesh one slot a card; by default every slot is on one card")
     args = parser.parse_args()
 
     sys.modules["jax"] = None  # this script and the port never import jax
@@ -3208,6 +3542,13 @@ def main() -> int:
     hamming, gather, ivf_scan, ivf_rerank, ivf_pq_scan, vamana_search, vamana_prune = _phase("1 build", phase_build)
     counted = (("K1", hamming), ("K2", gather), ("K3", ivf_scan), ("K4", ivf_rerank), ("K9", ivf_pq_scan),
                ("K10", vamana_search), ("K11", vamana_prune))
+    if args.mesh_only:
+        mfleet, mhttp = run_phase_22(torch, counted, device, args)
+        print(env["smi"])
+        print(json.dumps({"mesh_fleet": mfleet, "mesh_http": mhttp}, default=float))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+        return 0
     worst = _phase("2 K1 against its plain version", phase_kernel, torch, hamming, device)
     sl = _phase("3 the BQ slice over HTTP", phase_slice, torch, hamming, gather, device, args.seed)
     timing = _phase("4 K1 timing", phase_timing, torch, hamming, sl["codes"], sl["qcodes"])
@@ -3245,6 +3586,7 @@ def main() -> int:
                    args.seed)
     log(f"[profiler] times reported by CUDA events after every window lost its kernels (P2): "
         f"{len(EVENT_FALLBACKS)} {EVENT_FALLBACKS}")
+    mfleet, mhttp = run_phase_22(torch, counted, device, args)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     ivf_shape = (f"the IVF bench cell's operands: B={cell['res']['batch']} queries, p={cell['res']['probes']}, "
                  f"C={cell['res']['clusters']}, S={cell['res']['slab']}, {cell['res']['slab_dtype']} slabs; "
@@ -3303,6 +3645,7 @@ def main() -> int:
         "bound_bytes": cell["k3"]["bytes"],
         "per_query_bound_ms": cell["k3"]["per_query_bound_ms"],
         "launches_hybrid": hybrid["launches"]["K3"],
+        "launches_mesh": {"fleet": mfleet["launches"]["K3"], "http": mhttp["launches"]["K3"]},
         "launches_wide_filter": wide["launches"]["K3"],
         "shape": ivf_shape + "; every device event of a call (kernels and memset)",
         "cell_10m": {key: v for key, v in big["k3"].items() if key != "max_abs_err"},
@@ -3324,6 +3667,7 @@ def main() -> int:
         "element_route_ms": cell["k4"]["element_route_ms"],
         "projected": {key: v for key, v in proj.items() if key != "max_abs_err"},
         "launches_hybrid": hybrid["launches"]["K4"],
+        "launches_mesh": {"fleet": mfleet["launches"]["K4"], "http": mhttp["launches"]["K4"]},
         "launches_wide_filter": wide["launches"]["K4"],
         "cell_10m": {key: v for key, v in big["k4"].items() if key != "max_abs_err"},
         "ivfpq_cell": {key: v for key, v in pqcell["k4"].items() if key != "max_abs_err"},
@@ -3343,6 +3687,7 @@ def main() -> int:
             "bytes", "distinct_clusters", "live_slots_distinct", "b1_ms", "b1_call_ms", "b1_bound_ms", "b1_plain_ms")
             or key.startswith("base_")},
         "launches_http": http["k9_by_entry"].get("probed", 0),
+        "launches_mesh": mhttp["k9_by_entry"].get("probed", 0),
     }, {
         "name": "K9 pq_scan (dense ADC scan: flat PQ and the IVF-PQ overflow pool)",
         "route": "cuda",
@@ -3379,6 +3724,7 @@ def main() -> int:
                                                                                 vcell["k10"] else ())},
         "launches_by_shape": vcell["launches_by_shape"]["K10"],
         "launches_http": vhttp["launches"]["K10"],
+        "launches_mesh": mhttp["k10_by_route"].get("f32", 0),
         "checked_calls": vker["k10_calls"],
     }, {
         "name": ("K11 vamana_robust_prune (the greedy alpha prune; a block a node, the live rows staged, panels "

@@ -1,8 +1,13 @@
 """Cluster node: identity, nodedb, RPC handlers, and public actions.
 
-Port of ``semadb_tpu/cluster/node.py`` without the device-mesh searcher:
-searches take the host fan-out over shards, as the JAX node does on one
-device. The node's shards put their indices on its ``device``.
+Port of ``semadb_tpu/cluster/node.py``. The node's shards put their
+indices on its ``device``. A node given a shard ``mesh`` (or on a host with
+two cards or more, every card) spreads a ``shardPlacement: "device"``
+collection over one shard a mesh slot and serves its eligible vector queries
+through the mesh searcher (cluster/meshsearch.py); every other query takes
+the host fan-out over shards. Unlike the JAX node, a mesh searcher that
+fails to build raises: only the fleet refusals and the eligibility rules
+send a query to the host fan-out.
 
 Parity reference: cluster/clusternode.go (node identity, nodedb, serve,
 backup ticker, close), cluster/rpchandlers.go (12 self-routing handlers)
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 
 from semadb_tpu_torch.cluster.hashing import rendezvous_hash
+from semadb_tpu_torch.cluster.meshsearch import MeshSearcher, maybe_mesh
 from semadb_tpu_torch.cluster.metrics import count_point_op, observe_rpc
 from semadb_tpu_torch.cluster.placement import (
     ShardInfo,
@@ -33,6 +39,7 @@ from semadb_tpu_torch.cluster.placement import (
 )
 from semadb_tpu_torch.cluster.rpc import RPCClientPool, RPCError, RPCServer
 from semadb_tpu_torch.cluster.shardmgr import ShardManager
+from semadb_tpu_torch.index.manager import _filters_equal
 from semadb_tpu_torch.models.collection import Collection
 from semadb_tpu_torch.models.errors import (
     ExistsError,
@@ -42,6 +49,8 @@ from semadb_tpu_torch.models.errors import (
 )
 from semadb_tpu_torch.models.point import Point, SearchResult, result_doc
 from semadb_tpu_torch.models.query import SearchRequest
+from semadb_tpu_torch.parallel.mesh import ShardMesh
+from semadb_tpu_torch.shard.shard import postprocess_results
 from semadb_tpu_torch.store.diskstore import open_store
 from semadb_tpu_torch.utils.compare import sort_search_results
 from semadb_tpu_torch.utils.logging import get_logger
@@ -145,7 +154,7 @@ def _result_from_wire(d: dict) -> SearchResult:
 
 
 class ClusterNode:
-    def __init__(self, cfg: ClusterNodeConfig, device: torch.device):
+    def __init__(self, cfg: ClusterNodeConfig, device: torch.device, mesh: Optional[ShardMesh] = None):
         self.cfg = cfg
         self.device = torch.device(device)
         self.my_hostname = f"{cfg.rpc_host}:{cfg.rpc_port}"
@@ -164,6 +173,12 @@ class ClusterNode:
             max_cache_size=cfg.max_cache_size,
         )
         self.rpc = RPCClientPool(cfg.rpc_timeout, cfg.rpc_retries)
+        # Device-mesh data plane for shardPlacement="device" collections
+        # (cluster/meshsearch.py): the caller's mesh, else every card of a
+        # host with two or more; none on cpu or one card
+        if mesh is None:
+            mesh = maybe_mesh(self.device)
+        self._mesh_searcher = MeshSearcher(self.shard_manager, mesh) if mesh is not None else None
         self._server: Optional[RPCServer] = None
         self._backup_timer: Optional[threading.Timer] = None
         self._handlers: Dict[str, Callable[[dict], dict]] = {
@@ -548,8 +563,9 @@ class ClusterNode:
 
         count_point_op("insert", len(points))
         if col.shard_placement == "device":
-            # One device: one target, as the JAX node places without a mesh
-            assignments = distribute_points_spread(shards, points, 1, create_shard)
+            ms = self._mesh()
+            n_targets = ms.mesh.size if ms is not None else 1
+            assignments = distribute_points_spread(shards, points, n_targets, create_shard)
         else:
             assignments = distribute_points(
                 shards, points, self.cfg.max_shard_size,
@@ -577,10 +593,186 @@ class ClusterNode:
             list(ex.map(lambda kv: do_insert(*kv), assignments.items()))
         return failed
 
+    def _mesh(self) -> Optional[MeshSearcher]:
+        """The device-mesh searcher, or None without a mesh."""
+        return self._mesh_searcher
+
+    def _try_mesh_search(
+        self, col: Collection, srs: List[SearchRequest]
+    ) -> Optional[List[List[SearchResult]]]:
+        """Serve a batch through the device mesh when eligible, else None.
+
+        Replaces the reference's per-shard goroutine fan-out
+        (actions.go:274-378) with ONE sharded_*_search fan-out over the
+        mesh's slots, merged on its first slot; the result is the EXACT
+        global top-k, so no Poisson per-shard-limit shrink is needed.
+
+        Multi-node composition: when the collection spans several nodes,
+        THIS node mesh-serves the shards it owns (a partial stack) and fans
+        the rest out over RPC — the two data planes merge per request. The
+        reference has only the RPC plane (rpc.go:42-109).
+        """
+        ms = self._mesh()
+        if ms is None or col.shard_placement != "device" or not col.shard_ids:
+            return None
+        local_sids = [
+            sid for sid in col.shard_ids
+            if self._owner(sid) == self.my_hostname
+        ]
+        remote_sids = [
+            sid for sid in col.shard_ids if sid not in set(local_sids)
+        ]
+        if not local_sids:
+            return None
+        if remote_sids and any(sr.offset for sr in srs):
+            return None  # offset division semantics: host path handles it
+        prop = None
+        vecs, ks, weights, filters = [], [], [], []
+        fused_views, fused_weights = [], []
+        search_size = probes = 0
+        for sr in srs:
+            p = ms.eligible_query(col, sr.query)
+            if p is None or (prop is not None and p != prop):
+                return None
+            prop = p
+            fopts = sr.query.vector_fused
+            if fopts is not None:
+                fused_views.append(
+                    [np.asarray(v, np.float32) for v in fopts.vectors]
+                )
+                fused_weights.append(fopts.weights)
+                opts = fopts
+            else:
+                opts = sr.query.vector_vamana or sr.query.vector_ivf
+                vecs.append(np.asarray(opts.vector, np.float32))
+            filters.append(opts.filter)
+            ks.append(opts.limit)
+            weights.append(opts.weight if opts.weight is not None else 1.0)
+            search_size = max(search_size, getattr(opts, "search_size", 0))
+            probes = max(probes, getattr(opts, "num_probes", 0))
+        # One mask set serves the whole batch, so every request must carry
+        # the SAME filter (structurally); mixed-filter batches fall back.
+        filter_query = filters[0]
+        if any(not _filters_equal(f, filter_query) for f in filters[1:]):
+            return None
+        if fused_views and len(fused_views) != len(srs):
+            return None  # mixed fused / plain batches: host fan-out
+        if fused_views:
+            nviews = len(fused_views[0])
+            qviews = [
+                np.stack([fv[i] for fv in fused_views]) for i in range(nviews)
+            ]
+            hits = ms.search_batch_fused(
+                col, prop, qviews, fused_weights, max(ks), probes,
+                shard_ids=local_sids, filter_query=filter_query,
+            )
+        else:
+            hits = ms.search_batch(
+                col, prop, np.stack(vecs), max(ks), search_size, probes,
+                filter_query=filter_query, shard_ids=local_sids,
+            )
+        if hits is None:
+            return None
+        # UUID/data backfill: one read txn per shard that contributed hits
+        need: Dict[str, set] = {}
+        for row in hits:
+            for _, sid, nid in row:
+                need.setdefault(sid, set()).add(nid)
+        # Match the host path's with-data gate (shard.py wd logic and the
+        # reference's withData = len(Select)>0, shard.go:352): no select
+        # and no sort → results carry _id/_distance/_hybridScore only, so
+        # both data planes answer identically.
+        with_data = any(bool(sr.select) or bool(sr.sort) for sr in srs)
+        resolved = {}
+        for sid, nids in need.items():
+            ordered = sorted(nids)
+            resolved[sid] = self.shard_manager.do_with_shard(
+                col, sid, lambda s: s.resolve_node_ids(ordered, with_data)
+            )
+        out: List[List[SearchResult]] = []
+        for sr, row, kq, w in zip(srs, hits, ks, weights):
+            results = []
+            for dist, sid, nid in row[:kq]:
+                pt = resolved[sid].get(nid)
+                if pt is None:
+                    continue  # uncommitted/deleted id: tolerant resolution
+                results.append(
+                    SearchResult(
+                        point=pt, node_id=nid, distance=dist,
+                        hybrid_score=-dist * w,
+                    )
+                )
+            out.append(postprocess_results(sr, results))
+        if remote_sids:
+            self._merge_remote_shards(col, srs, remote_sids, out)
+        return out
+
+    def _merge_remote_shards(
+        self,
+        col: Collection,
+        srs: List[SearchRequest],
+        remote_sids: List[str],
+        out: List[List[SearchResult]],
+    ) -> None:
+        """Fan the batch to remote shards over RPC (SearchPointsBatch,
+        Poisson-shrunk per-shard limits as in actions.go:291-299) and
+        merge each request's remote hits into the mesh-served results —
+        the RPC plane × device-mesh plane composition."""
+        n_shards = max(len(col.shard_ids), 1)
+        shard_srs = []
+        for sr in srs:
+            target = int(sr.limit / n_shards * POISSON_APPROX_A + POISSON_APPROX_B)
+            target = min(target, self.cfg.max_search_limit, sr.limit)
+            shard_srs.append(
+                SearchRequest(
+                    query=sr.query, select=sr.select, sort=sr.sort,
+                    offset=0, limit=target,
+                )
+            )
+        lock = threading.Lock()
+        errors: List[Exception] = []
+
+        def do_remote(sid: str):
+            try:
+                resp = self._call(
+                    self._owner(sid),
+                    "SearchPointsBatch",
+                    {
+                        "collection": col.to_dict(),
+                        "shardId": sid,
+                        "searchRequests": [
+                            _search_request_to_dict(s) for s in shard_srs
+                        ],
+                    },
+                )
+                with lock:
+                    for qi, pts in enumerate(resp["results"]):
+                        out[qi].extend(_result_from_wire(r) for r in pts)
+            except Exception as e:
+                with lock:
+                    errors.append(e)
+
+        with ThreadPoolExecutor(max_workers=len(remote_sids)) as ex:
+            list(ex.map(do_remote, remote_sids))
+        if errors:
+            raise ShardUnavailableError(
+                f"shard could not search points: {errors[0]}"
+            )
+        for qi, sr in enumerate(srs):
+            if not sr.sort:
+                out[qi].sort(key=lambda r: -r.hybrid_score)
+            else:
+                sort_search_results(out[qi], sr.sort)
+            out[qi][:] = out[qi][: sr.limit]
+
     def search_points(
         self, col: Collection, sr: SearchRequest
     ) -> List[SearchResult]:
         """Scatter-gather search (actions.go:274-378)."""
+        mesh_out = self._try_mesh_search(col, [sr])
+        if mesh_out is not None:
+            count_point_op("search")
+            return mesh_out[0]
         original_limit = sr.limit
         n_shards = max(len(col.shard_ids), 1)
         target = int(sr.limit / n_shards * POISSON_APPROX_A + POISSON_APPROX_B)
@@ -648,6 +840,10 @@ class ClusterNode:
         merge per request. RPC count is per-shard, not per-query —
         beyond-reference; the reference's network cost scales with
         queries × shards (actions.go:274-378)."""
+        mesh_out = self._try_mesh_search(col, srs)
+        if mesh_out is not None:
+            count_point_op("search", len(srs))
+            return mesh_out
         n_shards = max(len(col.shard_ids), 1)
         shard_srs = []
         for sr in srs:
@@ -729,6 +925,10 @@ class ClusterNode:
                 [result_doc(r) for r in row]
                 for row in self.search_points_batch(col, srs)
             ]
+        mesh_out = self._try_mesh_search(col, srs)
+        if mesh_out is not None:
+            count_point_op("search", len(srs))
+            return [[result_doc(r) for r in row] for row in mesh_out]
         n_shards = max(len(col.shard_ids), 1)
         shard_srs = []
         for sr in srs:
@@ -857,12 +1057,18 @@ def _vec_wire(v) -> bytes:
 
 
 def _search_request_to_dict(sr: SearchRequest) -> dict:
-    """Wire encoding of a SearchRequest (query AST round-trip) for the
-    query types the port serves: vectorFlat, vectorIVF, and _id / _and / _or
-    filters."""
+    """Wire encoding of a SearchRequest (query AST round-trip)."""
 
     def q_to_dict(q) -> dict:
         out: dict = {"property": q.property}
+        if q.vector_vamana is not None:
+            o = q.vector_vamana
+            out["vectorVamana"] = {
+                "vector": _vec_wire(o.vector), "operator": o.operator,
+                "searchSize": o.search_size, "limit": o.limit,
+                **({"filter": q_to_dict(o.filter)} if o.filter else {}),
+                **({"weight": o.weight} if o.weight is not None else {}),
+            }
         if q.vector_flat is not None:
             o = q.vector_flat
             out["vectorFlat"] = {
@@ -878,10 +1084,37 @@ def _search_request_to_dict(sr: SearchRequest) -> dict:
                 **({"filter": q_to_dict(o.filter)} if o.filter else {}),
                 **({"weight": o.weight} if o.weight is not None else {}),
             }
+        if q.vector_fused is not None:
+            o = q.vector_fused
+            out["vectorFused"] = {
+                "vectors": [_vec_wire(v) for v in o.vectors], "operator": o.operator,
+                "limit": o.limit,
+                **({"weights": [float(w) for w in o.weights]} if o.weights else {}),
+                **({"numProbes": o.num_probes} if o.num_probes else {}),
+                **({"filter": q_to_dict(o.filter)} if o.filter else {}),
+                **({"weight": o.weight} if o.weight is not None else {}),
+            }
+        if q.text is not None:
+            o = q.text
+            out["text"] = {
+                "value": o.value, "operator": o.operator, "limit": o.limit,
+                **({"filter": q_to_dict(o.filter)} if o.filter else {}),
+                **({"weight": o.weight} if o.weight is not None else {}),
+            }
         if q.string is not None:
             out["string"] = {
                 "value": q.string.value, "operator": q.string.operator,
                 "endValue": q.string.end_value,
+            }
+        if q.integer is not None:
+            out["integer"] = {
+                "value": q.integer.value, "operator": q.integer.operator,
+                "endValue": q.integer.end_value,
+            }
+        if q.float_ is not None:
+            out["float"] = {
+                "value": q.float_.value, "operator": q.float_.operator,
+                "endValue": q.float_.end_value,
             }
         if q.string_array is not None:
             out["stringArray"] = {

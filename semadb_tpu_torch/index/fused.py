@@ -8,9 +8,9 @@ are the JAX package's, so its fused arrays load here. Where it differs:
 engine's centroids through the engine's own lock together with what the
 engine caches from them, and tells a new fit from the one it already fixed by
 the engine's refit counter, not by ``id()`` of an array (an id can be reused
-once an array is freed); the engine keeps no dirty tracker, so there is no
-``dirty`` property; and ``capture_stack_view`` waits for the mesh fan-out,
-which is not ported.
+once an array is freed); and ``capture_stack_view`` holds copies of the
+inner engine's tensors (the port writes them in place), flushing deferred
+fits and re-applying the probe-centroid surgery first.
 
 The reference fuses multi-index hybrid queries by summing the scores a
 candidate earned in each child index's own top list (the reference's
@@ -335,6 +335,33 @@ class FusedHybridIVF:
         out["fused_scales"] = self._s.copy()
         return out
 
+    def capture_stack_view(self):
+        """Consistent snapshot for the mesh fan-out (see
+        IndexIVF.capture_stack_view): the inner engine's stack view (copies)
+        plus a frozen psi mapper. The psi mapping is PER SHARD: it bakes in
+        this shard's fitted norm scales (_s), so the mesh path maps queries
+        with each shard's own capture and adds each shard's rank constant
+        before the cross-shard merge (raw engine scores are only comparable
+        within one shard)."""
+        import types
+
+        with self.index._write_lock:
+            if self.index._has_placeholders():
+                self.index.flush_pending()
+            self._fix_probe_centroids()  # a flush refits: probe by centroid distance
+            inner = self.index.capture_stack_view()
+            ps = types.SimpleNamespace(
+                view_dims=list(self.view_dims),
+                view_metrics=list(self.view_metrics),
+                default_weights=list(self.default_weights),
+                _a=self._a.copy(),
+                _s=self._s.copy(),
+                _eucl=list(self._eucl),
+            )
+        ps._check_views = lambda qv: FusedHybridIVF._check_views(ps, qv)
+        ps.psi = lambda qviews, weights=None: FusedHybridIVF._psi(ps, qviews, weights)
+        return inner, ps
+
     def device_arrays(self) -> dict:
         """Device-resident snapshot view for the snapshot writer (see
         IndexIVF.device_arrays) — the inner engine's arrays (derived slabs
@@ -342,6 +369,7 @@ class FusedHybridIVF:
         probe-centroid surgery re-applied exactly as in :meth:`to_arrays`."""
         out = self.index.device_arrays()
         self._fix_probe_centroids()
+        self.index.dirty.all("centroids")  # surgery rewrote them
         out["centroids"] = self.index.centroids
         out["fused_meta"] = np.array(
             [len(self.view_dims)] + self.view_dims, np.int64
@@ -355,6 +383,10 @@ class FusedHybridIVF:
 
     def snapshot_row_bounds(self) -> dict:
         return self.index.snapshot_row_bounds()
+
+    @property
+    def dirty(self):
+        return self.index.dirty
 
     @property
     def _write_lock(self):

@@ -81,6 +81,7 @@ from semadb_tpu_torch.ops.distance import pairwise_distance
 from semadb_tpu_torch.ops.kernels.ivf_pq_scan import ivf_pq_probe_scan, pq_scan
 from semadb_tpu_torch.ops.kernels.ivf_rerank import ivf_exact_rerank
 from semadb_tpu_torch.ops.kernels.ivf_scan import ivf_probe_scan
+from semadb_tpu_torch.utils.dirty import DirtyTracker
 from semadb_tpu_torch.utils.grow import initial_capacity, next_capacity
 from semadb_tpu_torch.vectorstore.kmeans import (
     kmeans_assign,
@@ -407,6 +408,11 @@ class IndexIVF:
         # mirrors are read-modify-write); searches never take it.
         self._state_lock = threading.RLock()
         self._write_lock = threading.RLock()
+        # Dirty-row tracking for incremental snapshots (shard/snapshot.py):
+        # _set_rows and _set_cells mark the rows they write; a refit marks
+        # everything and a rebinding the array it replaces. Fresh index =
+        # everything dirty.
+        self.dirty = DirtyTracker()
         self._max_seen = 0
         self.capacity = initial_capacity(D * 4, 128)
         self.vectors = torch.zeros((self.capacity, D), dtype=torch.float32, device=dev)
@@ -430,6 +436,48 @@ class IndexIVF:
     def pq_active(self) -> bool:
         return self.pq_codebook is not None
 
+    def capture_stack_view(self):
+        """Consistent snapshot of what the mesh fan-out stacks
+        (parallel/fanout.pad_ivf_view): what this index's own search scores,
+        taken under ``_write_lock`` and ``_state_lock``. Writes update the
+        tensors in place, so the snapshot holds copies (the JAX package's
+        immutable buffers let it hold references); deferred-fit placeholders
+        are flushed first, as :meth:`device_arrays` does, so the snapshot
+        scores every point the shard's own search scores."""
+        import types
+
+        with self._write_lock:
+            if self._has_placeholders():
+                self.flush_pending()
+            with self._state_lock:
+                p0 = self._num_probes(0)
+
+                def c(t):
+                    return None if t is None else t.clone()
+
+                return types.SimpleNamespace(
+                    params=self.params,
+                    metric=self.metric,
+                    pq_active=self.pq_active,
+                    pq_codebook=c(self.pq_codebook),
+                    slab_codes=c(self.slab_codes),
+                    ovf_codes=c(self.ovf_codes),
+                    centroids=c(self.centroids),
+                    slabs=c(self.slabs),
+                    slab_sq=c(self.slab_sq),
+                    slab_ids=c(self.slab_ids),
+                    ovf_vecs=c(self.ovf_vecs),
+                    ovf_ids=c(self.ovf_ids),
+                    vectors=c(self.vectors),
+                    _proj=c(self._proj),
+                    _sq=self._sq,  # reads only self.metric (immutable)
+                    # the shard's own search skips a pool with no live row
+                    live_ovf=self.ovf_ids.shape[0] != len(self._ovf_free),
+                    # default probe count frozen at capture time (the live
+                    # method reads the centroid count, which a refit changes)
+                    _num_probes=lambda requested=0: requested or p0,
+                )
+
     # -- internals ----------------------------------------------------------
     def _sq(self, arr: torch.Tensor) -> torch.Tensor:
         """Stored-side norm term: squared euclidean keeps |x|^2; dot and
@@ -439,14 +487,17 @@ class IndexIVF:
         return torch.zeros(arr.shape[:-1], dtype=torch.float32, device=arr.device)
 
     def _set_rows(self, name: str, rows, vals: torch.Tensor) -> None:
-        """``getattr(self, name)[rows] = vals`` in place."""
+        """``getattr(self, name)[rows] = vals`` in place; the rows marked dirty."""
+        self.dirty.rows(name, rows)
         idx = _long(rows).to(self.device)
         with self._state_lock:
             dst = getattr(self, name)
             dst.index_copy_(0, idx, vals.to(dst.device, dst.dtype))
 
     def _set_cells(self, name: str, cs, ss, vals: torch.Tensor) -> None:
-        """``getattr(self, name)[cs, ss] = vals`` in place."""
+        """``getattr(self, name)[cs, ss] = vals`` in place; the clusters
+        ``cs`` (the array's rows) marked dirty."""
+        self.dirty.rows(name, cs)
         ci, si = _long(cs).to(self.device), _long(ss).to(self.device)
         with self._state_lock:
             dst = getattr(self, name)
@@ -462,6 +513,7 @@ class IndexIVF:
             grown[: self.capacity] = self.vectors
             self.vectors = grown
             self.capacity = new_cap
+        self.dirty.all("vectors")  # shape change: full rewrite of the array
 
     def __len__(self) -> int:
         return len(self._loc)
@@ -478,6 +530,8 @@ class IndexIVF:
                 else:
                     self.ovf_vecs = torch.cat([self.ovf_vecs, self.ovf_vecs.new_zeros((grow, self.tdim))])
                 self.ovf_ids = torch.cat([self.ovf_ids, self.ovf_ids.new_full((grow,), NIL)])
+            for name in ("ovf_vecs", "ovf_ids", "ovf_codes"):
+                self.dirty.all(name)
             self._ovf_free.extend(range(old, old + grow))
         return [self._ovf_free.pop() for _ in range(n)]
 
@@ -705,6 +759,8 @@ class IndexIVF:
             self._ovf_free = list(range(len(spill), O))
             self._sq_cache = {}
             self.refits += 1
+        # Every array was rebuilt (and most resized): all dirty for the next snapshot
+        self.dirty.everything()
         self._fill = fill  # high-water mark incl. secondary copies
         with self._phase("loc_maps_s"):
             self._loc = dict(
@@ -838,6 +894,7 @@ class IndexIVF:
             with self._state_lock:
                 self.vectors = grown
                 self.capacity = new_cap
+            self.dirty.all("vectors")
             self._max_seen = max(self._max_seen, int(ids_np[-1]))
         else:
             self._ensure_capacity(int(ids_np.max()))
@@ -968,6 +1025,7 @@ class IndexIVF:
         with self._state_lock:
             self.centroids = centroids
             self._sq_cache = {}
+        self.dirty.all("centroids")
 
     def flush_pending(self) -> None:
         """Run the refit a ``defer_fit`` bulk insert postponed (also when
@@ -1204,6 +1262,8 @@ class IndexIVF:
                 idx._loc2.setdefault(i, []).append((int(c), int(s)))
             else:
                 idx._loc[i] = ("s", int(c), int(s))
+        # Loaded state matches the snapshot it came from: nothing dirty
+        idx.dirty.clear()
         return idx
 
 

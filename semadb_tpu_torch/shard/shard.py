@@ -44,7 +44,7 @@ from semadb_tpu_torch.index.manager import (
 )
 from semadb_tpu_torch.models import constants as C
 from semadb_tpu_torch.models.collection import Collection
-from semadb_tpu_torch.models.errors import ExistsError, ValidationError
+from semadb_tpu_torch.models.errors import ExistsError, NotFoundError, ValidationError
 from semadb_tpu_torch.models.point import Point, SearchResult, decode_point_data
 from semadb_tpu_torch.models.query import SearchRequest
 from semadb_tpu_torch.shard import pointstore
@@ -103,6 +103,12 @@ class Shard:
         # counts a journal carried across reopens, not just this process's
         # writes.
         self._journal_bytes = 0
+        # Monotonic write counter, seeded per open with random bits: the
+        # mesh-serving cache (cluster/meshsearch.py) compares versions by
+        # equality, so a counter restarting at 0 after an unload and reopen
+        # could match a stack built against the previous Shard instance
+        # after the same number of writes.
+        self.write_version = int.from_bytes(os.urandom(7), "big") << 24
         # node-id → uuid-string cache for the id-only serving path;
         # delete_points invalidates freed ids (see UuidStrCache docstring).
         self._uuid_strs = pointstore.UuidStrCache()
@@ -235,7 +241,9 @@ class Shard:
             # The host postings caches may hold the rolled-back mutations
             for c in self._host_caches.values():
                 c.scrap()
+            self.write_version += 1
             raise
+        self.write_version += 1
         if (FLUSH_EVERY_TXNS and self._delta_txns >= FLUSH_EVERY_TXNS) or (
             FLUSH_JOURNAL_MB and self._journal_bytes >= FLUSH_JOURNAL_MB * 2**20
         ):
@@ -393,6 +401,39 @@ class Shard:
         return deleted
 
     # -- search ------------------------------------------------------------
+    def filter_node_ids(self, filter_query) -> set:
+        """Evaluate a filter sub-query to this shard's admissible node-id
+        set in ONE read txn: the host half of the mesh filtered search
+        (cluster/meshsearch.py), whose masks go to the slots
+        (index/search.go:58-65 computes the same bitmap before the walk)."""
+        out = [set()]
+
+        def reader(bm):
+            s, _ = self._index_manager(bm).search(filter_query)
+            out[0] = s
+
+        self.db.read(reader)
+        return out[0]
+
+    def resolve_node_ids(self, node_ids: List[int], with_data: bool = True) -> Dict[int, Point]:
+        """Map shard-local node ids to points in ONE read txn (the mesh
+        fan-out's UUID backfill). Unknown ids are skipped: a concurrent
+        writer can surface a node id whose point record has not committed
+        yet (see search_points_batch's tolerant resolution)."""
+        out: Dict[int, Point] = {}
+
+        def reader(bm):
+            b_points = bm.get(pointstore.POINTS_BUCKET_NAME)
+            for nid in node_ids:
+                try:
+                    sp = pointstore.get_point_by_node_id(b_points, nid, with_data)
+                except NotFoundError:
+                    continue
+                out[nid] = sp.point
+
+        self.db.read(reader)
+        return out
+
     def search_points(self, request: SearchRequest) -> List[SearchResult]:
         return self.search_points_batch([request])[0]
 

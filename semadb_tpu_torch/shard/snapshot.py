@@ -11,10 +11,10 @@ bucket:
 
 Arrays are flattened to "/"-joined paths (the nested ``store`` dict becomes
 ``store/codes`` etc.) and chunked along axis 0 into ~4 MiB pieces. An engine
-with a dirty-row tracker (``utils/dirty.DirtyTracker``: the Vamana index)
-has only its dirty chunks read back and rewritten, as the JAX package's
-writer does; an engine without one (the flat, IVF and fused indices), or
-whose tracker says "everything", gets every chunk of its used rows. Rows
+with a dirty-row tracker (``utils/dirty.DirtyTracker``: the Vamana, IVF and
+fused indices) has only its dirty chunks read back and rewritten, as the JAX
+package's writer does; an engine without one (the flat index), or whose
+tracker says "everything", gets every chunk of its used rows. Rows
 past the engine's ``snapshot_row_bounds`` are never copied off the device.
 The engine hands over tensors (``device_arrays``, read under its
 ``_write_lock`` when it has one); their dtype names in the meta are numpy's,
@@ -182,13 +182,16 @@ def write_snapshot(bucket, idx) -> int:
     # Writers are excluded while the arrays are read, so the cut is
     # consistent (IndexIVF also materialises deferred-fit placeholders here)
     with getattr(idx, "_write_lock", None) or contextlib.nullcontext():
+        # The arrays first: handing them over may refit (placeholders) or
+        # redo the fused centroid surgery, which marks the tracker
+        arrays = _flatten(idx.device_arrays())
         tracker = getattr(idx, "dirty", None)
         if tracker is not None:
             everything, marks = tracker.collect()
             tracker.clear()
         else:
             everything, marks = True, {}
-        return _write_arrays(bucket, _flatten(idx.device_arrays()), idx, everything, marks)
+        return _write_arrays(bucket, arrays, idx, everything, marks)
 
 
 def _write_arrays(bucket, arrays: dict, idx, everything: bool, marks: dict) -> int:

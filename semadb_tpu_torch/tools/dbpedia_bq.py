@@ -134,9 +134,10 @@ class Server:
 
 
 @contextlib.contextmanager
-def serving(cfg: ConfigMap, device: torch.device):
-    """The port's ClusterNode and HTTP v2 server, in-process on ``device``."""
-    node = ClusterNode(cfg.cluster_node, device)
+def serving(cfg: ConfigMap, device: torch.device, mesh=None):
+    """The port's ClusterNode and HTTP v2 server, in-process on ``device``
+    (with the shard ``mesh`` when given)."""
+    node = ClusterNode(cfg.cluster_node, device, mesh=mesh)
     node.serve()
     try:
         http = run_http_server(node, cfg.http_api)

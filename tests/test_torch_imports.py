@@ -5,11 +5,12 @@ An ``ast`` walk of ``semadb_tpu_torch/`` and ``chip_smoke.py`` finds no
 imports every module of the port and runs a tiny slice on ``cpu``. The host
 modules the port keeps its own copies of (``models/``, ``store/``,
 ``utils/{compare,dirty,grow,itemcache}.py``, ``index/{inverted,text}.py``,
-``httpapi/v1.py``, ``tools/{loadrand,dumpgraph}.py``,
+``httpapi/v1.py``, ``tools/{loadrand,dumpgraph,dumpkeys,migrate,jsonschema}.py``,
 ``csrc/kvstore.cpp``) stay the same as the JAX
 package's originals, apart from their imports and the store's native build;
 so do the definitions it copies from ``utils/pipeline.py`` (all but the
-readback), ``tools/datasets.py`` (the host generators and ground truth),
+readback), ``tools/datasets.py`` (the HDF5 loader, the host generators and
+ground truth),
 ``vectorstore/kmeans.py`` (``_group_rows``, host numpy) and
 ``index/fused.py`` (the fused engine's members that need no tensor).
 """
@@ -111,6 +112,9 @@ def _copies():
     yield "httpapi/v1.py"
     yield "tools/loadrand.py"
     yield "tools/dumpgraph.py"
+    yield "tools/dumpkeys.py"
+    yield "tools/migrate.py"
+    yield "tools/jsonschema.py"
 
 
 class _Normalize(ast.NodeTransformer):
@@ -161,14 +165,15 @@ PARTIAL_COPIES = [
     # AsyncDispatcher._materialise reads tensors back with .cpu() where the
     # original maps jax.tree over np.asarray
     ("utils/pipeline.py", None, ("_materialise",)),
-    ("tools/datasets.py", ("AnnDataset", "embedding_like", "embedding_like_views", "compute_ground_truth"), ()),
+    ("tools/datasets.py", ("AnnDataset", "load_hdf5", "synthetic_clustered", "embedding_like",
+                           "embedding_like_adversarial", "embedding_like_views", "compute_ground_truth"), ()),
     ("vectorstore/kmeans.py", ("_group_rows",), ()),
     # The fused engine: the feature maps, search and persistence helpers are
-    # the original's; these members take a device, work on tensors or wait
-    # for the mesh (capture_stack_view) and the dirty tracker (dirty)
+    # the original's; these members take a device, work on tensors or, for
+    # capture_stack_view, copy the inner engine's tensors after a flush
     ("index/fused.py", ("FusedHybridIVF",), (
         "__init__", "from_params", "_fix_probe_centroids", "sync", "search_batch_async", "to_arrays",
-        "capture_stack_view", "device_arrays", "dirty", "from_arrays")),
+        "capture_stack_view", "device_arrays", "from_arrays")),
 ]
 
 
@@ -193,3 +198,13 @@ def test_kvstore_source_is_a_byte_copy():
     with open(os.path.join(ROOT, "native", "kvstore.cpp"), "rb") as a, \
             open(os.path.join(PKG, "csrc", "kvstore.cpp"), "rb") as b:
         assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("rel", ["parallel/__init__.py", "parallel/mesh.py", "parallel/fanout.py",
+                                 "cluster/meshsearch.py"])
+def test_mesh_modules_are_in_the_import_check(rel):
+    """The mesh data plane is among the modules the AST walk and the blocked
+    subprocess import (both walk the whole package)."""
+    path = os.path.join(PKG, rel)
+    assert path in set(_port_modules())
+    assert [n for n in _imports(path) if not _allowed(n)] == []
