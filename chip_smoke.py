@@ -248,7 +248,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    each (1,000 over HTTP, the rest through ``ClusterNode.insert_points``).
    Ten single searches of each, a batch of ten and ten filtered searches
    (v2): every distance numpy's within 1e-5 relative, recall@10 >= 0.95.
-   Then 1,000 deletes and 1,000 updates a collection over HTTP: no deleted
+   Then 500 deletes and 500 updates a collection over HTTP: no deleted
    id may come back, the same checks hold, 20 updated points find
    themselves. Then a flush (the dirty-row snapshot), close and reopen: every
    search must answer the same. K10 and K11 must have launched.
@@ -281,8 +281,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    binary quantizer (hamming), a product quantizer (8 x 256) and the
    hamming metric on 0/1 vectors. Fifty searches and fifty filtered of each
    against numpy (BQ and PQ distances f32 within 1e-5 relative, unfiltered
-   recall@10 >= 0.9; hamming bit counts exact; every filter kept), 1,000
-   deletes and 1,000 updates a
+   recall@10 >= 0.9; hamming bit counts exact; every filter kept), 500
+   deletes and 500 updates a
    collection (no deleted id back, 20 updated points each find themselves
    at distance 0), a flush, close and reopen (every search the same). K10's
    bit and ADC routes and K4 must have launched.
@@ -302,6 +302,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
    fan-out over the same shards (the tie rule; the Vamana ids' overlap) and
    numpy's recall; HTTP p50 with the mesh and without; a filtered search
    on each f32 kind; a write and a search on the incremental restack.
+23. The three-node cluster: the JAX system's ``config/serverA.yaml``,
+   ``serverB.yaml`` and ``serverC.yaml`` as three node processes of the port
+   on the card (``python -m semadb_tpu_torch.tools.run_cluster``; only the
+   root directories rewritten, into a temporary one, and a port only where
+   another process holds it). Through A, the slice's BQ collection of
+   phase 3 (100,000 x 1536) over HTTP msgpack, whose shards must lie on at
+   least two nodes; through B two 20,000 x 128 ``embedding_like``
+   collections, a ``vectorIVF`` and a ``vectorVamana`` at its defaults,
+   filled through C. Through each node: 10 BQ single searches and a batch
+   of 64, each equal to numpy brute force by the tie rule; 10 IVF and 10
+   Vamana searches, recall@10 >= 0.95, every distance numpy's within 1e-5
+   relative, the same ids from all three. Then 8 client threads for 20 s,
+   each request to a node drawn at random: single searches of the three
+   collections and insert txns of 20 points into IVF and Vamana; no request
+   may fail, and every acknowledged point must then come back through every
+   node as its own nearest neighbour at distance 0. The nodes log their
+   kernel launches at shutdown: K1, K3, K4, K10 and K11 must each have
+   launched. Then the membership change: A alone (its servers list cut to
+   itself) fills a 20,000-point ``vectorIVF`` collection (more, up to 5,
+   until one shard hashes to another node), A, B and C start with the
+   published lists (B and C first), and A's startup sync must ship exactly
+   the shards whose rendezvous owner is B or C; every node must answer as A
+   did before the move. Last, in this process, a ``ShardManager`` on the card
+   over the directories of the node holding most BQ shards, its
+   ``max_cache_size`` half of their indices' bytes: every shard searched
+   twice, round robin; the budget must evict, and every answer equal an
+   unbudgeted load's. ``--cluster-only`` runs phases 1 and 23 alone.
 
 Each kernel's bound is its bytes (each input read once, each output
 written once; for K2 each distinct row once; for K3 each distinct probed
@@ -329,6 +356,7 @@ import contextlib
 import functools
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -2318,7 +2346,9 @@ VAMANA_TIMED_RUNS = 10
 VAMANA_CELL_RECALL = 0.98  # the JAX package read 0.9989 here (TPU history, BENCHMARKS.md:423-424)
 HTTP_VAMANA_POINTS = 20_000
 HTTP_VAMANA_RECALL = 0.95
-HTTP_VAMANA_WRITES = 1_000
+# Deletes and as many updates a collection over HTTP in phases 16 and 21: a
+# depth cut so that the whole script, phase 23 included, stays near 800 s
+HTTP_VAMANA_WRITES = 500
 LIBRARY_NONE_K10 = "none: no one PyTorch call walks a graph"
 LIBRARY_NONE_K11 = "none: no one PyTorch call prunes a pool"
 # K10 on integer-valued graphs, every output bit for bit: (B, L, W, R,
@@ -3487,6 +3517,498 @@ def run_phase_22(torch, counted, device, args) -> tuple:
     return fleet, http
 
 
+# -- phase 23: the three-node cluster ------------------------------------------
+
+CLUSTER_POINTS = 20_000  # the IVF and Vamana collections, and each collection of the sync step
+CLUSTER_DIM = 128
+CLUSTER_QUERIES = 10  # IVF and Vamana searches through each node
+CLUSTER_RECALL = 0.95
+CLUSTER_REQUEST = 10_000  # points an insert request (the v2 limit)
+CLUSTER_CLIENTS = 8
+CLUSTER_SECONDS = 20.0
+CLUSTER_TXN = 20  # points an insert txn of the concurrent clients
+CLUSTER_POOL = 5_000  # new points the concurrent clients may insert into a collection
+CLUSTER_SELF_BATCH = 1_024  # self-searches a batch request, after the concurrent clients
+CLUSTER_SYNC_TRIES = 5  # collections the sync step fills until a shard belongs to another node
+CLUSTER_BUDGET_SHARE = 0.5  # of one node's BQ indices' bytes: the in-process budget
+CLUSTER_BUDGET_QUERIES = 5
+CLUSTER_KERNELS = ("K1", "K3", "K4", "K10", "K11")  # the kernels of the cluster's path
+CLUSTER_USER = "smoke"
+
+
+def _mp(url: str, method: str = "POST", body=None, packed: bytes = None) -> dict:
+    """One HTTP v2 request in msgpack, body and answer; raises on a status
+    other than 200."""
+    import urllib.error
+    import urllib.request
+
+    import msgpack
+
+    data = packed if packed is not None else (None if body is None else _pack(body))
+    headers = {"X-User-Id": CLUSTER_USER, "X-Plan-Id": "BASIC", "Accept": "application/msgpack"}
+    if data is not None:
+        headers["Content-Type"] = "application/msgpack"
+    req = urllib.request.Request(url, data=data, method=method, headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return msgpack.unpackb(r.read(), raw=False)
+    except urllib.error.HTTPError as e:
+        raise RuntimeError(f"{method} {url}: HTTP {e.code} {msgpack.unpackb(e.read(), raw=False)}") from e
+
+
+def _pack(body) -> bytes:
+    import msgpack
+
+    return msgpack.packb(body, use_bin_type=True, use_single_float=True)  # the vectors' f32 values, exactly
+
+
+def _seeded_ids(rng, n: int) -> list:
+    import uuid
+
+    return [str(uuid.UUID(bytes=rng.bytes(16), version=4)) for _ in range(n)]
+
+
+def _cluster_insert(base: str, name: str, ids, rows) -> None:
+    """``rows`` into collection ``name`` through ``base`` in requests of
+    CLUSTER_REQUEST points; the next request's body is packed while one is
+    in flight."""
+    def body(lo):
+        hi = min(lo + CLUSTER_REQUEST, len(ids))
+        return _pack({"points": [{"_id": pid, "vector": v} for pid, v in zip(ids[lo:hi], rows[lo:hi].tolist())]})
+
+    starts = list(range(0, len(ids), CLUSTER_REQUEST))
+    with ThreadPoolExecutor(1) as ex:
+        nxt = ex.submit(body, starts[0])
+        for i in range(len(starts)):
+            blob = nxt.result()
+            if i + 1 < len(starts):
+                nxt = ex.submit(body, starts[i + 1])
+            out = _mp(f"{base}/v2/collections/{name}/points", packed=blob)
+            if out.get("failedRanges") != []:
+                raise AssertionError(f"insert into {name} through {base}: {out}")
+
+
+def _vector_body(kind: str, q, limit: int = LIMIT) -> dict:
+    return {"query": {"property": "vector", kind: {"vector": q.tolist(), "operator": "near", "limit": limit}}}
+
+
+def _shards_by_node(cl, name: str, shard_ids) -> dict:
+    """Which node's root directory holds each shard of collection ``name``."""
+    where = {}
+    for n in cl.nodes:
+        for sid in shard_ids:
+            if os.path.exists(os.path.join(n.root, CLUSTER_USER, name, sid, "sharddb.sdb")):
+                where.setdefault(sid, []).append(n.name)
+    return where
+
+
+def _compute_apps(torch, cl) -> dict:
+    """Each node process's device memory as ``nvidia-smi`` lists it ("not
+    listed" where it shows no such process, as in a container), and the
+    card's memory in use by every process."""
+    rows = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip().splitlines()
+    by_pid = {int(r.split(",")[0]): r.split(",")[1].strip() for r in rows if r.split(",")[0].strip().isdigit()}
+    free, total = torch.cuda.mem_get_info()
+    return {**{n.name: by_pid.get(n.proc.pid, "not listed") for n in cl.nodes},
+            "card_in_use_gib": (total - free) / 2**30}
+
+
+def _vector_answers(base: str, name: str, kind: str, queries) -> tuple:
+    """(each query's [(id, distance)], each search's seconds) through ``base``."""
+    rows, lat = [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        pts = _mp(f"{base}/v2/collections/{name}/points/search", body=_vector_body(kind, q))["points"]
+        lat.append(time.perf_counter() - t0)
+        rows.append([(p["_id"], p["_distance"]) for p in pts])
+    return rows, lat
+
+
+def _check_vector_rows(rows, data, queries, row_of, what: str) -> float:
+    """recall@10 of ``rows`` against numpy's exact search over ``data``, every
+    distance numpy's within 1e-5 relative; returns the recall."""
+    hits = 0
+    for q, row in zip(queries, rows):
+        d = ((data.astype(np.float64) - q.astype(np.float64)) ** 2).sum(-1)
+        truth = set(np.argsort(d, kind="stable")[:LIMIT].tolist())
+        got = [row_of[pid] for pid, _ in row]
+        hits += len(truth & set(got))
+        for (_, dist), r in zip(row, got):
+            if abs(dist - d[r]) > VAMANA_RTOL * max(1.0, d[r]):
+                raise AssertionError(f"{what}: distance {dist} of a point at {d[r]}")
+    recall = hits / (LIMIT * len(rows))
+    if recall < CLUSTER_RECALL:
+        raise AssertionError(f"{what}: recall@10 {recall} is below {CLUSTER_RECALL}")
+    return recall
+
+
+def _cluster_launches(cl) -> dict:
+    """The kernel launches of every node, from the logs of their last
+    shutdown, and their sum."""
+    by_node = {n.name: n.launches() for n in cl.nodes}
+    total = {k: sum(v[k] for v in by_node.values()) for k in next(iter(by_node.values()))}
+    return {"by_node": by_node, "total": total}
+
+
+def _stop_cluster(cl) -> dict:
+    """Stop every node; each must exit 0 (a node that died before fails)."""
+    rcs = cl.stop()
+    if any(rc != 0 for rc in rcs):
+        raise AssertionError(f"node exit codes {rcs}:\n" + "\n".join(n.log_tail(20) for n in cl.nodes))
+    return _cluster_launches(cl)
+
+
+def _cluster_ingest(torch, cl, seed: int) -> dict:
+    """Phase 23.1: the BQ collection through A, the IVF and Vamana
+    collections through B, filled through C."""
+    from semadb_tpu_torch.tools import dbpedia_bq as bq
+    from semadb_tpu_torch.tools.datasets import embedding_like
+
+    a, b, c = cl.nodes
+    out = _mp(f"{a.http}/v2/collections", body={"id": bq.COLLECTION, "indexSchema": bq.SCHEMA})
+    assert out == {"message": "collection created"}, out
+    emb = bq.Embeddings(seed)
+    ids = _seeded_ids(np.random.default_rng([seed, 23]), bq.N_POINTS)
+    words = np.empty((bq.N_POINTS, bq.DIM // 64), np.uint64)
+    t0 = time.perf_counter()
+    for bi, lo in enumerate(range(0, bq.N_POINTS, CLUSTER_REQUEST)):
+        v = emb.block(bi, CLUSTER_REQUEST)
+        words[lo:lo + CLUSTER_REQUEST] = bq.sign_words(v)
+        _cluster_insert(a.http, bq.COLLECTION, ids[lo:lo + CLUSTER_REQUEST], v)
+    ingest_s = time.perf_counter() - t0
+    info = _mp(f"{a.http}/v2/collections/{bq.COLLECTION}", method="GET")
+    counts = {s["id"]: s["pointCount"] for s in info["shards"]}
+    assert sum(counts.values()) == bq.N_POINTS, counts
+    where = _shards_by_node(cl, bq.COLLECTION, counts)
+    if sorted(where) != sorted(counts) or any(len(v) != 1 for v in where.values()):
+        raise AssertionError(f"each BQ shard must lie in one node's directory: {where}")
+    per_node = {n.name: sorted(counts[s] for s, owner in where.items() if owner == [n.name]) for n in cl.nodes}
+    if sum(1 for v in per_node.values() if v) < 2:
+        raise AssertionError(f"the BQ shards lie on one node, so no search crosses the RPC plane: {per_node}")
+    log(f"[cluster] BQ: {bq.N_POINTS} x {bq.DIM} points over HTTP msgpack through {a.name} in {ingest_s:.2f} s = "
+        f"{bq.N_POINTS / ingest_s:.1f} points/s; {len(counts)} shards, points per shard by node {per_node}")
+    small = {}
+    for kind, schema_kind, offset in (("ivf", "vectorIVF", 23), ("vamana", "vectorVamana", 24)):
+        ds = embedding_like(CLUSTER_POINTS + CLUSTER_POOL, CLUSTER_DIM, CLUSTER_QUERIES, spread=0.5,
+                            seed=seed + offset)
+        sids = _seeded_ids(np.random.default_rng([seed, offset]), CLUSTER_POINTS + CLUSTER_POOL)
+        out = _mp(f"{b.http}/v2/collections", body={"id": kind, "indexSchema": {"vector": {
+            "type": schema_kind, schema_kind: {"vectorSize": CLUSTER_DIM, "distanceMetric": "euclidean"}}}})
+        assert out == {"message": "collection created"}, out
+        t1 = time.perf_counter()
+        _cluster_insert(c.http, kind, sids[:CLUSTER_POINTS], ds.train[:CLUSTER_POINTS])
+        took = time.perf_counter() - t1
+        shards = [s["id"] for s in _mp(f"{c.http}/v2/collections/{kind}", method="GET")["shards"]]
+        small[kind] = {"kind": schema_kind, "data": ds.train[:CLUSTER_POINTS], "pool": ds.train[CLUSTER_POINTS:],
+                       "queries": ds.test, "ids": sids, "row_of": {pid: i for i, pid in enumerate(sids)},
+                       "shards": _shards_by_node(cl, kind, shards)}
+        log(f"[cluster] {schema_kind}: created through {b.name}, {CLUSTER_POINTS} x {CLUSTER_DIM} points through "
+            f"{c.name} in {took:.2f} s = {CLUSTER_POINTS / took:.1f} points/s; shards {small[kind]['shards']}")
+    memory = _compute_apps(torch, cl)
+    log(f"[cluster] device memory by node (nvidia-smi --query-compute-apps): {memory}")
+    data = bq.Loaded(ids, words, list(counts.values()), "", ingest_s, 0.0, 0.0, ingest_s)
+    return {"bq": data, "per_node": per_node, "small": small, "ingest_points_per_s": bq.N_POINTS / ingest_s,
+            "memory": memory}
+
+
+def _cluster_answers(cl, ing: dict, seed: int) -> dict:
+    """Phase 23.2: BQ, IVF and Vamana searches through every node."""
+    from semadb_tpu_torch.tools import dbpedia_bq as bq
+
+    queries = bq.queries(seed, 10 + 64)
+    p50, recall = {}, {}
+    ids_by_node = {}
+    for n in cl.nodes:
+        lat = []
+        for i in range(10):
+            t0 = time.perf_counter()
+            pts = _mp(f"{n.http}/v2/collections/{bq.COLLECTION}/points/search",
+                      body=bq.search_body(queries[i], LIMIT))["points"]
+            lat.append(time.perf_counter() - t0)
+            errs = bq.brute_force_errors(queries[i], pts, ing["bq"], LIMIT)
+            if errs:
+                raise AssertionError(f"BQ single search {i} through {n.name}: {errs}")
+        t0 = time.perf_counter()
+        res = _mp(f"{n.http}/v2/collections/{bq.COLLECTION}/points/search/batch",
+                  body={"queries": [bq.search_body(q, LIMIT) for q in queries[10:]]})["results"]
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        for i, row in enumerate(res):
+            errs = bq.brute_force_errors(queries[10 + i], row["points"], ing["bq"], LIMIT)
+            if errs:
+                raise AssertionError(f"BQ batch search {i} through {n.name}: {errs}")
+        p50[n.name] = {"bq": float(np.median(lat)) * 1e3, "bq_batch64": batch_ms}
+        recall[n.name] = {}
+        for kind, s in ing["small"].items():
+            rows, lat = _vector_answers(n.http, kind, s["kind"], s["queries"])
+            recall[n.name][kind] = _check_vector_rows(rows, s["data"], s["queries"], s["row_of"],
+                                                      f"{s['kind']} through {n.name}")
+            p50[n.name][kind] = float(np.median(lat)) * 1e3
+            ids_by_node.setdefault(kind, {})[n.name] = [[pid for pid, _ in row] for row in rows]
+    for kind, by in ids_by_node.items():
+        first = next(iter(by.values()))
+        if any(v != first for v in by.values()):
+            raise AssertionError(f"{kind}: the nodes answered different ids")
+    log(f"[cluster] every node: 10 BQ single searches and a batch of 64 equal to numpy brute force by the tie rule; "
+        f"{CLUSTER_QUERIES} IVF and Vamana searches each, recall@10 {recall}, the same ids from all three; "
+        f"HTTP p50 ms by node and kind {p50}")
+    return {"p50_ms": p50, "recall": recall}
+
+
+def _cluster_concurrent(cl, ing: dict, seed: int) -> dict:
+    """Phase 23.3: CLUSTER_CLIENTS threads for CLUSTER_SECONDS, each request to
+    a node drawn at random: single searches of the three collections and
+    insert txns into IVF and Vamana. No request may fail; then every
+    acknowledged point must come back through every node as its own nearest
+    neighbour."""
+    import threading
+
+    from semadb_tpu_torch.tools import dbpedia_bq as bq
+
+    bq_queries = bq.queries(seed + 5, 64)
+    lock = threading.Lock()
+    taken = {k: 0 for k in ing["small"]}
+    acked = {k: [] for k in ing["small"]}
+    counts, failures, lat = {}, [], {}
+    known = {k: set(s["ids"]) for k, s in ing["small"].items()}
+    end = time.perf_counter() + CLUSTER_SECONDS
+
+    def one(rng):
+        node = cl.nodes[int(rng.integers(len(cl.nodes)))]
+        r = float(rng.random())
+        kinds = list(ing["small"])
+        kind = kinds[int(rng.integers(len(kinds)))]
+        s = ing["small"][kind]
+        if r >= 0.6:
+            with lock:
+                lo = taken[kind]
+                if lo + CLUSTER_TXN <= CLUSTER_POOL:
+                    taken[kind] = lo + CLUSTER_TXN
+            if lo + CLUSTER_TXN <= CLUSTER_POOL:
+                ids = s["ids"][CLUSTER_POINTS + lo:CLUSTER_POINTS + lo + CLUSTER_TXN]
+                out = _mp(f"{node.http}/v2/collections/{kind}/points", body={"points": [
+                    {"_id": pid, "vector": v} for pid, v in zip(ids, s["pool"][lo:lo + CLUSTER_TXN].tolist())]})
+                if out.get("failedRanges") != []:
+                    raise AssertionError(f"insert txn into {kind} through {node.name}: {out}")
+                with lock:
+                    acked[kind].append(lo)
+                return f"{kind}_insert"
+            r = 0.0  # the pool is used up: a search instead
+        if r < 0.2:
+            i = int(rng.integers(len(bq_queries)))
+            pts = _mp(f"{node.http}/v2/collections/{bq.COLLECTION}/points/search",
+                      body=bq.search_body(bq_queries[i], LIMIT))["points"]
+            errs = bq.brute_force_errors(bq_queries[i], pts, ing["bq"], LIMIT)
+            if errs:
+                raise AssertionError(f"BQ search through {node.name}: {errs}")
+            return "bq_search"
+        q = s["queries"][int(rng.integers(len(s["queries"])))]
+        pts = _mp(f"{node.http}/v2/collections/{kind}/points/search", body=_vector_body(s["kind"], q))["points"]
+        if len(pts) != LIMIT or any(p["_id"] not in known[kind] or not np.isfinite(p["_distance"]) for p in pts):
+            raise AssertionError(f"{kind} search through {node.name} during writes: {pts}")
+        return f"{kind}_search"
+
+    def client(t):
+        rng = np.random.default_rng([seed, 230, t])
+        while time.perf_counter() < end:
+            t0 = time.perf_counter()
+            try:
+                what = one(rng)
+            except Exception as e:  # every failure is counted and fails the phase below
+                with lock:
+                    failures.append(f"client {t}: {type(e).__name__}: {e}")
+                continue
+            with lock:
+                counts[what] = counts.get(what, 0) + 1
+                lat.setdefault(what, []).append(time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(CLUSTER_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    cl.check()
+    if failures:
+        raise AssertionError(f"{len(failures)} requests failed under {CLUSTER_CLIENTS} clients: {failures[:5]}")
+    found = {}
+    for kind, s in ing["small"].items():
+        rows = sorted(lo + j for lo in acked[kind] for j in range(CLUSTER_TXN))
+        for n in cl.nodes:
+            for at in range(0, len(rows), CLUSTER_SELF_BATCH):
+                part = rows[at:at + CLUSTER_SELF_BATCH]
+                res = _mp(f"{n.http}/v2/collections/{kind}/points/search/batch", body={"queries": [
+                    _vector_body(s["kind"], s["pool"][r], 1) for r in part]})["results"]
+                for r, row in zip(part, res):
+                    pts = row["points"]
+                    if not pts or pts[0]["_id"] != s["ids"][CLUSTER_POINTS + r] or pts[0]["_distance"] != 0.0:
+                        raise AssertionError(f"{kind}: acknowledged point {r} through {n.name} came back as {pts}")
+        found[kind] = len(rows)
+    p50 = {k: float(np.median(v)) * 1e3 for k, v in lat.items()}
+    log(f"[cluster] {CLUSTER_CLIENTS} clients for {CLUSTER_SECONDS:.0f} s over the three nodes: requests {counts}, "
+        f"none failed; p50 ms {p50}; every acknowledged point ({found}) came back through every node as its own "
+        f"nearest neighbour at distance 0")
+    return {"requests": counts, "failed": 0, "p50_ms": p50, "acknowledged": found}
+
+
+def _cluster_sync(run_cluster, root: str, device, seed: int) -> dict:
+    """Phase 23.4: serverA alone fills IVF collections; then A, B and C start
+    with the published servers lists and A's startup sync ships the shards
+    whose rendezvous owner is another node. The answers through every node
+    must equal A's before the move."""
+    from semadb_tpu_torch.cluster.hashing import rendezvous_hash
+    from semadb_tpu_torch.tools.datasets import embedding_like
+
+    full = run_cluster.prepare(run_cluster.CONFIGS, root)
+    servers = [n.rpc for n in full.nodes]
+    solo = run_cluster.launch(run_cluster.prepare(run_cluster.CONFIGS[:1], root, only_started=True), str(device))
+    a = solo.nodes[0]
+    before, shards, names = {}, {}, []
+    with solo:
+        for t in range(CLUSTER_SYNC_TRIES):
+            name = f"synced{t}"
+            ds = embedding_like(CLUSTER_POINTS, CLUSTER_DIM, CLUSTER_QUERIES, spread=0.5, seed=seed + 40 + t)
+            ids = _seeded_ids(np.random.default_rng([seed, 40 + t]), CLUSTER_POINTS)
+            out = _mp(f"{a.http}/v2/collections", body={"id": name, "indexSchema": {"vector": {
+                "type": "vectorIVF", "vectorIVF": {"vectorSize": CLUSTER_DIM, "distanceMetric": "euclidean"}}}})
+            assert out == {"message": "collection created"}, out
+            _cluster_insert(a.http, name, ids, ds.train)
+            shards[name] = [s["id"] for s in _mp(f"{a.http}/v2/collections/{name}", method="GET")["shards"]]
+            before[name] = (ds.test, _vector_answers(a.http, name, "vectorIVF", ds.test)[0])
+            _check_vector_rows(before[name][1], ds.train, ds.test, {p: i for i, p in enumerate(ids)},
+                               f"{name} through {a.name} alone")
+            names.append(name)
+            owners = {sid: rendezvous_hash(sid, servers, 1)[0] for sid in shards[name]}
+            if any(o != a.rpc for o in owners.values()):
+                break
+        launches_solo = _stop_cluster(solo)["total"]
+    owners = {sid: rendezvous_hash(sid, servers, 1)[0] for name in names for sid in shards[name]}
+    to_move = sorted(sid for sid, o in owners.items() if o != a.rpc)
+    if not to_move:
+        raise AssertionError(f"every shard of {CLUSTER_SYNC_TRIES} collections hashes to {a.name}: {owners}")
+    full = run_cluster.prepare(run_cluster.CONFIGS, root)
+    if [n.rpc for n in full.nodes] != servers:
+        raise AssertionError(f"the ports moved between the two starts: {servers}, {[n.rpc for n in full.nodes]}")
+    run_cluster.launch(full, str(device), names=[n.name for n in full.nodes[1:]])  # the receivers first
+    with full:
+        run_cluster.launch(full, str(device), names=[full.nodes[0].name])
+        stats, sync_s = run_cluster.startup_sync(full.nodes[0])[-1]
+        if stats["shardsMoved"] != len(to_move):
+            raise AssertionError(f"A's startup sync moved {stats}, expected {len(to_move)} shards: {owners}")
+        for name in names:
+            where = _shards_by_node(full, name, shards[name])
+            for sid in shards[name]:
+                want = next(n.name for n in full.nodes if n.rpc == owners[sid])
+                if where.get(sid) != [want]:
+                    raise AssertionError(f"shard {sid} of {name} lies in {where.get(sid)}, its owner is {want}")
+        for n in full.nodes:
+            for name in names:
+                qs, want = before[name]
+                got = _vector_answers(n.http, name, "vectorIVF", qs)[0]
+                if got != want:
+                    raise AssertionError(f"{name} through {n.name} after the move: {got[:2]} against {want[:2]}")
+        launches = _stop_cluster(full)
+    log(f"[cluster] sync: {a.name} alone filled {len(names)} vectorIVF collection(s) of {CLUSTER_POINTS} points; "
+        f"restarted as three nodes, its startup sync moved {stats} in {sync_s:.3f} s (its log's clock: RPC "
+        f"serving to the sync's end); {len(to_move)} shard file(s) now lie at their rendezvous owners and every "
+        f"node answers {CLUSTER_QUERIES} searches a collection as {a.name} did before the move; launches alone "
+        f"{launches_solo}, after {launches['total']}")
+    return {"collections": len(names), "shards_moved": stats["shardsMoved"],
+            "collections_moved": stats["collectionsMoved"], "sync_s": sync_s,
+            "launches": {k: launches_solo[k] + launches["total"][k] for k in launches_solo}}
+
+
+def _cluster_budget(torch, counted, device, node_root: str, seed: int) -> dict:
+    """Phase 23.5: a ShardManager on the card in this process over one node's
+    BQ shard directories, its device-memory budget about half of their
+    indices' bytes; every shard searched twice, round robin: the budget must
+    evict, and every shard answer as it did on a load without a budget."""
+    from semadb_tpu_torch.cluster.shardmgr import ShardManager
+    from semadb_tpu_torch.models import Collection, IndexSchema, SearchRequest, UserPlan
+    from semadb_tpu_torch.shard.registry import index_nbytes
+    from semadb_tpu_torch.tools import dbpedia_bq as bq
+
+    col = Collection(user_id=CLUSTER_USER, id=bq.COLLECTION, index_schema=IndexSchema.from_dict(bq.SCHEMA),
+                     user_plan=UserPlan())
+    sids = sorted(os.listdir(os.path.join(node_root, CLUSTER_USER, bq.COLLECTION)))
+    srs = [SearchRequest.from_dict(bq.search_body(q, LIMIT)) for q in bq.queries(seed + 7, CLUSTER_BUDGET_QUERIES)]
+
+    def answers(mgr, sid):
+        rows = mgr.do_with_shard(col, sid, lambda s: s.search_points_batch(srs))
+        return [[(str(r.point.id), r.distance) for r in row] for row in rows]
+
+    _zero_counts(counted)
+    free = ShardManager(node_root, device)
+    want = {sid: answers(free, sid) for sid in sids}
+    nbytes = {sid: free.do_with_shard(col, sid, lambda s: index_nbytes(s.device_indices.get(bq.INDEX_KEY)))
+              for sid in sids}
+    free.unload_all()
+    budget = int(sum(nbytes.values()) * CLUSTER_BUDGET_SHARE)
+    mgr = ShardManager(node_root, device, max_cache_size=budget)
+    try:
+        t0 = time.perf_counter()
+        for rnd in range(2):
+            for sid in sids:
+                if answers(mgr, sid) != want[sid]:
+                    raise AssertionError(f"BQ shard {sid} answered otherwise in round {rnd} under the budget")
+        took = time.perf_counter() - t0
+        evictions = mgr.hbm_budget.evictions
+    finally:
+        mgr.unload_all()
+    launches = {nm: mod.LAUNCHES for nm, mod in counted}
+    if evictions <= 0:
+        raise AssertionError(f"a budget of {budget} bytes over {nbytes} evicted nothing")
+    if launches["K1"] <= 0:
+        raise AssertionError(f"the budgeted searches did not launch K1: {launches}")
+    log(f"[cluster] budget: {len(sids)} BQ shards of one node, indices {sorted(nbytes.values())} bytes, "
+        f"maxCacheSize {budget}; two round-robin passes of {CLUSTER_BUDGET_QUERIES} searches a shard in "
+        f"{took:.2f} s: {evictions} evictions, every answer equal to the unbudgeted load's; K1 launches {launches['K1']}")
+    return {"shards": len(sids), "index_bytes": nbytes, "max_cache_size": budget, "evictions": evictions,
+            "seconds": took, "launches": launches}
+
+
+def phase_cluster(torch, counted, device, seed: int) -> dict:
+    """Phase 23: the JAX system's three-node cluster (config/server{A,B,C}.yaml)
+    as three node processes of the port on the card, started by
+    ``semadb_tpu_torch/tools/run_cluster.py``."""
+    import glob
+    import shutil
+
+    from semadb_tpu_torch.tools import run_cluster
+
+    root = tempfile.mkdtemp(prefix="semadb_smoke_cluster_")
+    try:
+        t0 = time.perf_counter()
+        cl = run_cluster.start(root=os.path.join(root, "cluster"), device=str(device))
+        with cl:
+            log(f"[cluster] three nodes up in {time.perf_counter() - t0:.1f} s: "
+                f"{[(n.name, n.http, n.rpc) for n in cl.nodes]}; ports rewritten (taken): {cl.rewritten_ports}")
+            ing = _cluster_ingest(torch, cl, seed)
+            ans = _cluster_answers(cl, ing, seed)
+            conc = _cluster_concurrent(cl, ing, seed)
+            launches = _stop_cluster(cl)
+        missing = [k for k in CLUSTER_KERNELS if launches["total"][k] <= 0]
+        if missing:
+            raise AssertionError(f"the cluster's nodes never launched {missing}: {launches['by_node']}")
+        log(f"[cluster] kernel launches by node (their logs at shutdown): {launches['by_node']}")
+        sync = _cluster_sync(run_cluster, os.path.join(root, "sync"), device, seed)
+        most = max(cl.nodes, key=lambda n: len(ing["per_node"][n.name]))
+        budget = _cluster_budget(torch, counted, device, most.root, seed)
+    except BaseException:
+        for path in sorted(glob.glob(os.path.join(root, "*", "*.log"))):  # the nodes' logs, to place the failure
+            with open(path, errors="replace") as f:
+                log(f"[cluster] the end of {path}:\n" + "".join(f.readlines()[-30:]))
+        raise
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    total = {k: launches["total"][k] + sync["launches"][k] + budget["launches"][k] for k in launches["total"]}
+    return {"ingest_points_per_s": ing["ingest_points_per_s"], "shards_by_node": ing["per_node"],
+            "device_memory": ing["memory"], "p50_ms": ans["p50_ms"], "recall": ans["recall"], "concurrent": conc,
+            "sync": {k: v for k, v in sync.items() if k != "launches"},
+            "budget": {k: v for k, v in budget.items() if k not in ("launches", "index_bytes")},
+            "launches": total, "launches_by_node": launches["by_node"],
+            "rewritten_ports": cl.rewritten_ports}
+
+
 def _phase(name: str, fn, *args, **kwargs):
     """Run one phase between a line that says it starts and one that says it
     passed, so that a failure can be placed."""
@@ -3522,6 +4044,9 @@ def main() -> int:
     parser.add_argument("--mesh-only", action="store_true",
                         help="run the environment, the build and phase 22 only (prints its numbers, not the kernels "
                              "line)")
+    parser.add_argument("--cluster-only", action="store_true",
+                        help="run the environment, the build and phase 23 only (prints its numbers, not the kernels "
+                             "line)")
     parser.add_argument("--mesh-cards", type=int, default=0, metavar="N",
                         help="phase 22 across the first N cards (N >= 2): the fleet's 8 slots over every card in "
                              "turn, the node's mesh one slot a card; by default every slot is on one card")
@@ -3546,6 +4071,13 @@ def main() -> int:
         mfleet, mhttp = run_phase_22(torch, counted, device, args)
         print(env["smi"])
         print(json.dumps({"mesh_fleet": mfleet, "mesh_http": mhttp}, default=float))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+        return 0
+    if args.cluster_only:
+        cluster = _phase("23 the three-node cluster", phase_cluster, torch, counted, device, args.seed)
+        print(env["smi"])
+        print(json.dumps({"cluster": cluster}, default=float))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
         return 0
@@ -3587,6 +4119,7 @@ def main() -> int:
     log(f"[profiler] times reported by CUDA events after every window lost its kernels (P2): "
         f"{len(EVENT_FALLBACKS)} {EVENT_FALLBACKS}")
     mfleet, mhttp = run_phase_22(torch, counted, device, args)
+    cluster = _phase("23 the three-node cluster", phase_cluster, torch, counted, device, args.seed)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     ivf_shape = (f"the IVF bench cell's operands: B={cell['res']['batch']} queries, p={cell['res']['probes']}, "
                  f"C={cell['res']['clusters']}, S={cell['res']['slab']}, {cell['res']['slab_dtype']} slabs; "
@@ -3615,6 +4148,7 @@ def main() -> int:
             "route", "ms", "bound_ms", "share", "int8_ops_ms", *hamming.ROUTES, "plain_ms", "call_ms")
             if k in r} for b, r in by_b.items()},
         "threshold_sweep_cold_ms": {str(b): v for b, v in timing["threshold_sweep"].items()},
+        "launches_cluster": cluster["launches"]["K1"],
     }, {
         "name": "K2 gather_rows (row gather vectors[ids])",
         "route": "cuda",
@@ -3646,6 +4180,7 @@ def main() -> int:
         "per_query_bound_ms": cell["k3"]["per_query_bound_ms"],
         "launches_hybrid": hybrid["launches"]["K3"],
         "launches_mesh": {"fleet": mfleet["launches"]["K3"], "http": mhttp["launches"]["K3"]},
+        "launches_cluster": cluster["launches"]["K3"],
         "launches_wide_filter": wide["launches"]["K3"],
         "shape": ivf_shape + "; every device event of a call (kernels and memset)",
         "cell_10m": {key: v for key, v in big["k3"].items() if key != "max_abs_err"},
@@ -3668,6 +4203,7 @@ def main() -> int:
         "projected": {key: v for key, v in proj.items() if key != "max_abs_err"},
         "launches_hybrid": hybrid["launches"]["K4"],
         "launches_mesh": {"fleet": mfleet["launches"]["K4"], "http": mhttp["launches"]["K4"]},
+        "launches_cluster": cluster["launches"]["K4"],
         "launches_wide_filter": wide["launches"]["K4"],
         "cell_10m": {key: v for key, v in big["k4"].items() if key != "max_abs_err"},
         "ivfpq_cell": {key: v for key, v in pqcell["k4"].items() if key != "max_abs_err"},
@@ -3725,6 +4261,7 @@ def main() -> int:
         "launches_by_shape": vcell["launches_by_shape"]["K10"],
         "launches_http": vhttp["launches"]["K10"],
         "launches_mesh": mhttp["k10_by_route"].get("f32", 0),
+        "launches_cluster": cluster["launches"]["K10"],
         "checked_calls": vker["k10_calls"],
     }, {
         "name": ("K11 vamana_robust_prune (the greedy alpha prune; a block a node, the live rows staged, panels "
@@ -3751,6 +4288,7 @@ def main() -> int:
         "launches_by_shape": vcell["launches_by_shape"]["K11"],
         "launches_http": vhttp["launches"]["K11"],
         "launches_pool_cell": pool["launches"]["K11"],
+        "launches_cluster": cluster["launches"]["K11"],
         "checked_calls": vker["k11_calls"],
     }, *(_k10_route_row(cell, qhttp, vcodes) for cell in (bqv, pqv)), {
         "name": "K4 ivf_exact_rerank at the quantized Vamana walk's f32 rerank (the list and the ring, dedup)",

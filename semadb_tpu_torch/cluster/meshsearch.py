@@ -12,6 +12,11 @@ gives the EXACT global top-k, with no Poisson per-shard limit shrink.
 Eligibility (everything else falls back to the host fan-out):
   - a vectorVamana, vectorIVF or vectorFused query, filtered or not, no
     _and/_or/_id
+  - not a vectorVamana property of the hamming or jaccard metric: the slots
+    walk a Vamana graph in f32, so the mesh would answer another metric
+    than the host plane (F13; the JAX mesh serves it, in f32). BQ and PQ
+    stores stay on the mesh: their reranked distances are in the
+    collection's metric
   - no more shards than the mesh has slots
   - not a fleet ``ivf_stack_geometry`` refuses (mixed PQ / f32 modes, PQ
     shards with different (M, K)), not PQ with a filter, not a PQ fused
@@ -23,7 +28,8 @@ ints) with the cached stack's and replaces the copies of the shards that
 changed (or rebuilds the stack), so a read-heavy node restacks only after
 writes (the shared cache's read/write interlock, cache/manager.go:116-303).
 
-Where the port differs from the JAX package: the captures are copies (the
+Where the port differs from the JAX package: bit-metric Vamana queries go to
+the host plane (above); the captures are copies (the
 port's engines write in place, so a stack of references would be torn by the
 next write while its versions still match); a partial stack (a collection
 whose shards several nodes own) holds only this node's shards and leaves
@@ -48,6 +54,7 @@ from semadb_tpu_torch.index.vamana.graph import GraphState
 from semadb_tpu_torch.models import constants as C
 from semadb_tpu_torch.models.collection import Collection
 from semadb_tpu_torch.models.query import Query
+from semadb_tpu_torch.ops.distance import BIT_METRICS
 from semadb_tpu_torch.parallel import fanout
 from semadb_tpu_torch.parallel.mesh import ShardMesh, shard_mesh
 from semadb_tpu_torch.utils.logging import get_logger
@@ -104,6 +111,8 @@ class MeshSearcher:
         if params is None:
             return None
         if params.type == C.INDEX_TYPE_VECTOR_VAMANA:
+            if params.vector_vamana.distance_metric in BIT_METRICS:
+                return None  # the slots walk in f32: the host plane answers in the user's bit metric
             opts = query.vector_vamana
         elif params.type == C.INDEX_TYPE_VECTOR_IVF:
             opts = query.vector_ivf

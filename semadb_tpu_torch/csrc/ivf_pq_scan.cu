@@ -67,6 +67,8 @@
 
 #include <type_traits>
 
+#include "smem_optin.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;               // a block; also the radix pass's bins
@@ -484,8 +486,7 @@ cudaError_t launch_probed(const float* table, const int32_t* probe, const uint8_
                           int rr, int chunk, float* out_d, int32_t* out_i, cudaStream_t stream) {
   const int cap = pow2_at_least(rr);
   const size_t smem = ((size_t)M * K + chunk + 4 * (size_t)cap) * 4;
-  const cudaError_t e =
-      cudaFuncSetAttribute(pq_probe_scan_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t e = smem_opt_in((const void*)pq_probe_scan_kernel<W>, smem);
   if (e != cudaSuccess) return e;
   pq_probe_scan_kernel<W><<<B, kThreads, smem, stream>>>(table, probe, codes, slab_ids, mask, mask_len, p, C, S, M,
                                                            K, rr, chunk, cap, out_d, out_i);
@@ -496,8 +497,7 @@ template <int W>
 cudaError_t launch_dense(const float* table, const uint8_t* codes, const uint8_t* mask, int B, long long N, int M,
                          int K, float* out, cudaStream_t stream) {
   const size_t smem = (size_t)M * K * 4;
-  const cudaError_t e =
-      cudaFuncSetAttribute(pq_scan_dense_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t e = smem_opt_in((const void*)pq_scan_dense_kernel<W>, smem);
   if (e != cudaSuccess) return e;
   const long long tiles = (N + kThreads * kDenseRows - 1) / (kThreads * kDenseRows);
   pq_scan_dense_kernel<W><<<dim3(B, (unsigned)tiles), kThreads, smem, stream>>>(table, codes, mask, N, M, K, out);

@@ -84,6 +84,7 @@
 // Built with nvcc for sm_90a into a shared library with a plain C interface.
 
 #include "ivf_common.cuh"
+#include "smem_optin.cuh"
 
 namespace {
 
@@ -460,8 +461,7 @@ cudaError_t launch(const float* vectors, long long cap, int D, const float* quer
   const bool few = (int)grid <= sm_count();
   const Layout lay = make_layout(G, rr, D, kBulk, dedup != 0, few ? kStagesFew : kStagesMany,
                                  few ? kStageBytesFew : kStageBytesMany);
-  cudaError_t e = cudaFuncSetAttribute(rerank_kernel<kBulk, kMetric>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.smem);
+  cudaError_t e = smem_opt_in((const void*)rerank_kernel<kBulk, kMetric>, lay.smem);
   if (e != cudaSuccess) return e;
   rerank_kernel<kBulk, kMetric><<<grid, kBlock, lay.smem, stream>>>(
       vectors, cap, D, queries, pool, coarse, B, rr, k, dedup, lay, out_d, out_i);

@@ -77,6 +77,7 @@
 #include <type_traits>
 
 #include "ivf_common.cuh"
+#include "smem_optin.cuh"
 
 namespace {
 
@@ -600,8 +601,7 @@ template <bool kVec, bool kBf16, bool kWide>
 cudaError_t launch_score(const Operands& o, int Q, const int4* items, const int* pairs, int* header,
                          float* scratch, cudaStream_t stream) {
   const size_t smem = ((size_t)Q * (((o.r + 7) & ~7) + kSlotTile) + 2 * kSlotTile) * 4;
-  cudaError_t e = cudaFuncSetAttribute(ivf_scan_score<kVec, kBf16, kWide>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = smem_opt_in((const void*)ivf_scan_score<kVec, kBf16, kWide>, smem);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
@@ -644,10 +644,7 @@ cudaError_t launch(const Operands& o, int* work, float* scratch, cudaStream_t st
   int nbuf = 1024;  // candidate pairs: a power of two with room for rr kept and a step's appends
   while (nbuf < o.rr + kMergeUnroll * kMergeThreads) nbuf <<= 1;
   const size_t msmem = (size_t)nbuf * 8;
-  if ((e = cudaFuncSetAttribute(ivf_scan_merge, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)msmem)) !=
-      cudaSuccess) {
-    return e;
-  }
+  if ((e = smem_opt_in((const void*)ivf_scan_merge, msmem)) != cudaSuccess) return e;
   ivf_scan_merge<<<o.B, kMergeThreads, msmem, stream>>>(scratch, o.probe, o.slab_ids, o.p, o.S, o.rr, nbuf,
                                                          o.out_d, o.out_i);
   return cudaGetLastError();

@@ -57,6 +57,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "smem_optin.cuh"
 #include "vamana_common.cuh"
 
 namespace {
@@ -431,8 +432,7 @@ int semadb_vamana_robust_prune(const void* vectors, long long cap, int D, const 
     return (int)cudaErrorInvalidValue;
   }
   const Geometry g = pick_geometry(P, R, D);
-  cudaError_t err = cudaFuncSetAttribute(vamana_robust_prune_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)g.smem);
+  cudaError_t err = smem_opt_in((const void*)vamana_robust_prune_kernel, (size_t)g.smem);
   if (err != cudaSuccess) return (int)err;
   vamana_robust_prune_kernel<<<B, kThreads, g.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(vectors), cap, D, static_cast<const float*>(cand_d),

@@ -122,6 +122,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "smem_optin.cuh"
 #include "vamana_common.cuh"
 
 
@@ -1047,8 +1048,7 @@ struct Walk {
 template <int NW, int ROUTE, bool VEC>
 cudaError_t launch_as(const Geometry& g, const Walk& a, cudaStream_t stream) {
   const int smem = g.team_bytes * g.qpb;
-  cudaError_t err = cudaFuncSetAttribute(vamana_beam_search_kernel<NW, ROUTE, VEC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = smem_opt_in((const void*)vamana_beam_search_kernel<NW, ROUTE, VEC>, (size_t)smem);
   if (err != cudaSuccess) return err;
   const int blocks = (a.B + g.qpb - 1) / g.qpb;
   vamana_beam_search_kernel<NW, ROUTE, VEC><<<blocks, g.qpb * NW * 32, smem, stream>>>(

@@ -7,7 +7,8 @@ SIGTERM shutdown (main.go:40-98).
 Usage: ``python -m semadb_tpu_torch.main [--config path.yaml]
 [--device cuda]`` or set ``SEMADB_CONFIG``. The device defaults to
 ``cuda``; a CUDA device that is not available is an error, never a silent
-move to the CPU.
+move to the CPU. At shutdown the node logs how many times it launched each
+hand-written kernel (``kernel launches: {...}``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ def main(argv=None) -> int:
     from semadb_tpu_torch.cluster.node import ClusterNode
     from semadb_tpu_torch.cluster.sync import sync
     from semadb_tpu_torch.httpapi.server import run_http_server
+    from semadb_tpu_torch.ops.kernels import launch_counts
     from semadb_tpu_torch.utils.config import load_config
 
     device = torch.device(args.device)
@@ -60,9 +62,13 @@ def main(argv=None) -> int:
 
     signal.signal(signal.SIGTERM, on_signal)
     signal.signal(signal.SIGINT, on_signal)
-    stop.wait()
+    # Timed waits: the handler runs in this thread, and a set() that lands
+    # inside an untimed wait before it sleeps would not wake it
+    while not stop.wait(1.0):
+        pass
     http_server.shutdown()
     node.close()
+    log.info("kernel launches: %s", launch_counts())
     log.info("shutdown complete")
     return 0
 

@@ -1,7 +1,8 @@
 """Batched distance functions.
 
-Port of ``semadb_tpu/ops/distance.py`` (float metrics and the plain bit
-metrics). Semantics as there:
+Port of ``semadb_tpu/ops/distance.py`` (float metrics and the bit metrics;
+``pairwise_bit_distance`` is K1's wrapper, ``ops/kernels/hamming.py``).
+Semantics as there:
   - ``euclidean``  → *squared* euclidean (no sqrt)
   - ``dot``        → negated dot product (lower is better)
   - ``cosine``     → ``1 - dot`` (assumes normalized vectors)
@@ -23,7 +24,7 @@ import torch
 
 from semadb_tpu_torch.models import constants as C
 from semadb_tpu_torch.ops.kernels.hamming import (
-    pairwise_bit_distance_plain as pairwise_bit_distance,
+    pairwise_bit_distance_kernel as pairwise_bit_distance,
 )
 from semadb_tpu_torch.ops.kernels.hamming import popcount_sum
 

@@ -38,6 +38,7 @@ import torch
 from semadb_tpu_torch.utils.build import CSRC_DIR, NVCC_FLAGS, build_library, nvcc
 
 SOURCE = os.path.join(CSRC_DIR, "ivf_pq_scan.cu")
+HEADERS = (os.path.join(CSRC_DIR, "smem_optin.cuh"),)
 MAX_RR = 2048
 MAX_K = 256  # codes are u8
 # Shared memory a block may take on the H100 (227 KB): the query's table and,
@@ -285,6 +286,6 @@ def _library():
     global _LIB, BUILD_LOG
     with _LOCK:
         if _LIB is None:
-            path, BUILD_LOG = build_library("ivf_pq_scan", SOURCE, nvcc(), NVCC_FLAGS)
+            path, BUILD_LOG = build_library("ivf_pq_scan", SOURCE, nvcc(), NVCC_FLAGS, HEADERS)
             _LIB = bind(path)
         return _LIB

@@ -43,7 +43,7 @@ from semadb_tpu_torch.models import constants as C
 from semadb_tpu_torch.utils.build import CSRC_DIR, NVCC_FLAGS, build_library, nvcc
 
 SOURCE = os.path.join(CSRC_DIR, "ivf_rerank.cu")
-HEADERS = (os.path.join(CSRC_DIR, "ivf_common.cuh"),)
+HEADERS = (os.path.join(CSRC_DIR, "ivf_common.cuh"), os.path.join(CSRC_DIR, "smem_optin.cuh"))
 METRIC_FLAGS = {C.DISTANCE_EUCLIDEAN: 0, C.DISTANCE_DOT: 1, C.DISTANCE_COSINE: 2}
 MAX_POOL = 2048
 MAX_D = 4096

@@ -38,7 +38,7 @@ import torch
 from semadb_tpu_torch.utils.build import CSRC_DIR, NVCC_FLAGS, build_library, nvcc
 
 SOURCE = os.path.join(CSRC_DIR, "ivf_scan.cu")
-HEADERS = (os.path.join(CSRC_DIR, "ivf_common.cuh"),)
+HEADERS = (os.path.join(CSRC_DIR, "ivf_common.cuh"), os.path.join(CSRC_DIR, "smem_optin.cuh"))
 SLAB_DTYPES = (torch.float32, torch.bfloat16)
 MAX_RR = 2048  # the largest pool the merge keeps in shared memory
 MAX_R = 4096

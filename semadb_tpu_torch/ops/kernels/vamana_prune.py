@@ -40,7 +40,7 @@ from semadb_tpu_torch.ops.distance import _haversine_pair
 from semadb_tpu_torch.utils.build import CSRC_DIR, NVCC_FLAGS, build_library, nvcc
 
 SOURCE = os.path.join(CSRC_DIR, "vamana_prune.cu")
-HEADERS = (os.path.join(CSRC_DIR, "vamana_common.cuh"),)
+HEADERS = (os.path.join(CSRC_DIR, "vamana_common.cuh"), os.path.join(CSRC_DIR, "smem_optin.cuh"))
 METRIC_FLAGS = {C.DISTANCE_EUCLIDEAN: 0, C.DISTANCE_DOT: 1, C.DISTANCE_COSINE: 2, C.DISTANCE_HAVERSINE: 3}
 MAX_P = 2048
 MAX_D = 4096

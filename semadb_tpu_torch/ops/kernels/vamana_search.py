@@ -74,7 +74,7 @@ from semadb_tpu_torch.utils.build import CSRC_DIR, NVCC_FLAGS, build_library, nv
 from semadb_tpu_torch.vectorstore.store import pq_gather_distance
 
 SOURCE = os.path.join(CSRC_DIR, "vamana_search.cu")
-HEADERS = (os.path.join(CSRC_DIR, "vamana_common.cuh"),)
+HEADERS = (os.path.join(CSRC_DIR, "vamana_common.cuh"), os.path.join(CSRC_DIR, "smem_optin.cuh"))
 METRIC_FLAGS = {C.DISTANCE_EUCLIDEAN: 0, C.DISTANCE_DOT: 1, C.DISTANCE_COSINE: 2, C.DISTANCE_HAVERSINE: 3}
 MAX_L = 512
 MAX_WR = 512

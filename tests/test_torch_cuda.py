@@ -77,6 +77,21 @@ def test_kernel_route_by_b(cuda):
 
 
 @pytest.mark.cuda
+def test_exported_bit_distance_launches_the_kernel(cuda):
+    """``semadb_tpu_torch.ops.pairwise_bit_distance`` on CUDA tensors is a
+    launch of K1, equal to the plain version."""
+    from semadb_tpu_torch import ops
+
+    gen = torch.Generator().manual_seed(5)
+    q, x = _codes(gen, 9, 48).to(cuda), _codes(gen, 1000, 48).to(cuda)
+    before = hamming.LAUNCHES
+    got = ops.pairwise_bit_distance(q, x, "jaccard")
+    torch.cuda.synchronize()
+    assert hamming.LAUNCHES == before + 1
+    assert torch.equal(got, hamming.pairwise_bit_distance_plain(q, x, "jaccard"))
+
+
+@pytest.mark.cuda
 def test_kernel_wrapper_refuses_bad_operands(cuda):
     q = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
     x = torch.zeros((5, 4), dtype=torch.int32, device=cuda)
@@ -1067,3 +1082,172 @@ def test_vamana_pool_build_on_card(cuda):
     from semadb_tpu_torch.index.vamana.build import reachable_mask
 
     assert bool((reachable_mask(idx.state) | ~idx.exists).all())
+
+
+# P3: the kernels whose blocks may take more than the 48 KB a launch gets
+# without an opt-in, launched from two host threads at once, each thread at
+# its own shared-memory size (one of them past 48 KB), as a node's HTTP, RPC
+# and fan-out threads launch them. Each kernel is opted in once to the card's
+# maximum (csrc/smem_optin.cuh): an opt-in to one call's own size could be
+# lowered by the other thread between that call's opt-in and its launch,
+# which then fails. Each pair is one template instance of its kernel, so the
+# two threads share its opt-in.
+P3_ROUNDS = 300
+
+
+def _canonical(out):
+    """A pool sorted by (distance, id): equal pools compare equal whatever
+    order a kernel wrote them in."""
+    d, i = (t.cpu() for t in out)
+    by_id = torch.argsort(i, dim=1, stable=True)
+    d, i = torch.gather(d, 1, by_id), torch.gather(i, 1, by_id)
+    by_d = torch.argsort(d, dim=1, stable=True)
+    return torch.gather(d, 1, by_d), torch.gather(i, 1, by_d)
+
+
+def _p3_k3(cuda, small):
+    # the scoring kernel's staged queries, both on 16-byte loads of f32 rows
+    # of at most 1,024 columns: about 27 KB a block at r = 128, 64 KB at r = 1,024
+    b, p, s, r, rr = (64, 24, 128, 128, 64) if small else (8, 8, 64, 1024, 64)
+    gen = torch.Generator().manual_seed(b + rr)
+    qp, probe, slabs, sq, ids, _ = _scan_operands(gen, b, p, s, r, False, False, None)
+    ops = [t.to(cuda) for t in (qp, probe, slabs, sq, ids)] + [None]
+    flat_ids, x = ids.reshape(-1), slabs.reshape(-1, r).double()
+
+    def dist_of(bb, i):
+        if i == -1:
+            return float("inf")
+        cell = int((flat_ids == i).nonzero()[0, 0])
+        return float(sq.reshape(-1)[cell]) - 2.0 * float(x[cell] @ qp[bb].double())
+
+    xmax = float(x.norm(dim=1).max())
+    atol = IVF_RTOL * (xmax * xmax + 2.0 * xmax * qp.double().norm(dim=1))
+    return (lambda: ivf_scan.ivf_probe_scan(*ops, rr), lambda: ivf_scan.ivf_probe_scan_plain(*ops, rr),
+            lambda want, got: _pools_agree(want, got, dist_of, atol))
+
+
+def _p3_k4(cuda, small):
+    # bulk copies: two stages of 16 KB at B = 4,096, four of 48 KB at B = 1
+    b, d, k, rr = (4096, 128, 10, 64) if small else (1, 128, 10, 64)
+    gen = torch.Generator().manual_seed(b + d)
+    vectors, queries = torch.randn((3000, d), generator=gen), torch.randn((b, d), generator=gen)
+    pool = torch.argsort(torch.rand((b, 3000), generator=gen), dim=1)[:, :rr].to(torch.int32)
+    coarse = torch.randn((b, rr), generator=gen)
+    dev = [t.to(cuda) for t in (vectors, queries, pool, coarse)]
+
+    def dist_of(bb, i):
+        return float("inf") if i == -1 else float(((vectors[i].double() - queries[bb].double()) ** 2).sum())
+
+    atol = IVF_RTOL * ((float(vectors.norm(dim=1).max()) + queries.double().norm(dim=1)) ** 2 + 1.0)
+    return (lambda: ivf_rerank.ivf_exact_rerank(*dev, k, "euclidean", False),
+            lambda: ivf_rerank.ivf_exact_rerank_plain(*dev, k, "euclidean", False),
+            lambda want, got: _pools_agree(want, got, dist_of, atol))
+
+
+def _p3_k9(cuda, small):
+    # 16-byte code loads both: tables of 16 x 16 (20 KB a block) and 32 x 256 (53 KB)
+    b, p, s, m, k, rr = (64, 24, 128, 16, 16, 256) if small else (7, 24, 128, 32, 256, 256)
+    gen = torch.Generator().manual_seed(b + m + k)
+    table, probe, codes, ids, _ = _pq_operands(gen, b, p, s, m, k, False, 0)
+    ops = [t.to(cuda) for t in (table, probe, codes, ids)] + [None]
+    flat_ids, cflat = ids.reshape(-1), codes.reshape(-1, m).long()
+
+    def dist_of(bb, i):
+        if i == -1:
+            return float("inf")
+        cell = int((flat_ids == i).nonzero()[0, 0])
+        return float(table[bb].double()[torch.arange(m), cflat[cell]].sum())
+
+    atol = torch.full((b,), IVF_RTOL * m * float(table.abs().max()))
+    return (lambda: ivf_pq_scan.ivf_pq_probe_scan(*ops, rr), lambda: ivf_pq_scan.ivf_pq_probe_scan_plain(*ops, rr),
+            lambda want, got: _pools_agree(want, got, dist_of, atol))
+
+
+def _p3_k9_dense(cuda, small):
+    # the staged table: 1 KB (16 x 16) against 64 KB (64 x 256)
+    b, n, m, k = (3, 5000, 16, 16) if small else (3, 5000, 64, 256)
+    gen = torch.Generator().manual_seed(n + m + k)
+    codes = torch.randint(0, k, (n, m), generator=gen, dtype=torch.uint8).to(cuda)
+    table = torch.randn((b, m, k), generator=gen).to(cuda)
+    atol = IVF_RTOL * m * float(table.abs().max())
+    return (lambda: ivf_pq_scan.pq_scan(table, codes, None), lambda: ivf_pq_scan.pq_scan_plain(table, codes, None),
+            lambda want, got: torch.testing.assert_close(got, want, rtol=0, atol=atol))
+
+
+def _p3_k10(cuda, small):
+    # one warp a query, four queries a block: about 12 KB at L = 40, past 48 KB at L = 512
+    from semadb_tpu_torch.ops.kernels import vamana_search
+    from semadb_tpu_torch.tools import vamana_operands as vo
+
+    b, L, W, R = (64, 40, 2, 64) if small else (8, 512, 1, 64)
+    v, a = vo.random_graph(3000, 48, R, integer=True, metric="euclidean", seed=L, device=cuda)
+    q = vo.random_queries(b, 48, integer=True, metric="euclidean", seed=b, device=cuda)
+
+    def agree(want, got):
+        for name, g, w in zip(got._fields, _k10_out(got), _k10_out(want)):
+            assert torch.equal(g, w), name
+
+    return (lambda: vamana_search.vamana_beam_search(v, a, q, L, W, 0, "euclidean", track_visited=True),
+            lambda: vamana_search.beam_search_plain(v, a, q, L, W, 0, "euclidean", track_visited=True), agree)
+
+
+def _p3_k11(cuda, small):
+    # the staged rows: 8-d rows (a few KB) against the 128-d cell's (about 112 KB)
+    from semadb_tpu_torch.ops.kernels import vamana_prune
+    from semadb_tpu_torch.tools import vamana_operands as vo
+
+    b, p, R, dim = (64, 160, 32, 8) if small else (64, 224, 64, 128)
+    v, _ = vo.random_graph(5000, dim, 8, integer=True, metric="euclidean", seed=p, device=cuda)
+    d, i, self_ids = vo.prune_pools(v, b, p, "euclidean", seed=dim)
+    return (lambda: vamana_prune.vamana_robust_prune(d, i, self_ids, v, R, R, 1.2, "euclidean"),
+            lambda: vamana_prune.robust_prune_plain(d, i, self_ids, v, R, R, 1.2, "euclidean"),
+            lambda want, got: torch.testing.assert_close(got, want, rtol=0, atol=0))
+
+
+def _p3_same(kernel, first, got):
+    """Whether a repeat launch gave the first launch's result: pools as
+    (distance, id) multisets, the walk's lists and the pruned rows bit for bit."""
+    if kernel in ("k3", "k4", "k9"):  # k9_dense writes scores, compared below
+        return all(torch.equal(x, y) for x, y in zip(_canonical(first), _canonical(got)))
+    if kernel == "k10":
+        return all(torch.equal(x, y) for x, y in zip(_k10_out(first), _k10_out(got)))
+    return torch.equal(first, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["k3", "k4", "k9", "k9_dense", "k10", "k11"])
+def test_shared_memory_opt_in_across_threads(cuda, kernel):
+    """Two threads launch one kernel P3_ROUNDS times each, at two
+    shared-memory sizes: every launch succeeds and gives the result of the
+    first launch at its size, which matches the plain version."""
+    import threading
+
+    make = {"k3": _p3_k3, "k4": _p3_k4, "k9": _p3_k9, "k9_dense": _p3_k9_dense, "k10": _p3_k10,
+            "k11": _p3_k11}[kernel]
+    cases = [make(cuda, small) for small in (True, False)]
+    firsts = []
+    for launch, plain, agree in cases:
+        first = launch()
+        torch.cuda.synchronize()
+        agree(plain(), first)
+        firsts.append(first)
+    failures, outs, start = [], ([], []), threading.Barrier(2)
+
+    def hammer(launch, kept):
+        start.wait()  # results are read after both threads are done, so the launches overlap
+        for n in range(P3_ROUNDS):
+            try:
+                kept.append(launch())
+            except RuntimeError as e:
+                failures.append(f"round {n}: {e}")
+        torch.cuda.synchronize()
+
+    threads = [threading.Thread(target=hammer, args=(c[0], kept)) for c, kept in zip(cases, outs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not failures, failures[:5]
+    for first, kept in zip(firsts, outs):
+        assert len(kept) == P3_ROUNDS
+        assert all(_p3_same(kernel, first, got) for got in kept)

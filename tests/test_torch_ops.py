@@ -165,6 +165,23 @@ def test_bit_distance_plain_matches_xla(b, n, w, metric):
 
 
 @pytest.mark.parametrize("metric", [C.DISTANCE_HAMMING, C.DISTANCE_JACCARD])
+def test_exported_bit_distance_is_the_kernel_wrapper(metric):
+    """``semadb_tpu_torch.ops.pairwise_bit_distance`` is K1's wrapper, which
+    launches the kernel on CUDA tensors (or raises) and runs the plain
+    version only on CPU tensors; here it equals the plain version and the
+    XLA function."""
+    from semadb_tpu_torch import ops
+
+    assert ops.pairwise_bit_distance is hamming.pairwise_bit_distance_kernel
+    assert distance.pairwise_bit_distance is hamming.pairwise_bit_distance_kernel
+    q = _codes(7, 5, zero_rows=[0])
+    x = _codes(300, 5, zero_rows=[0, 299])
+    got = ops.pairwise_bit_distance(_t(q), _t(x), metric)
+    assert torch.equal(got, hamming.pairwise_bit_distance_plain(_t(q), _t(x), metric))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(pairwise_bit_distance(q, x, metric)))
+
+
+@pytest.mark.parametrize("metric", [C.DISTANCE_HAMMING, C.DISTANCE_JACCARD])
 @pytest.mark.parametrize("b,n,w", BIT_CASES[:3])
 def test_bit_distance_plain_matches_pallas_interpret(b, n, w, metric):
     q = _codes(b, w, zero_rows=[0])
