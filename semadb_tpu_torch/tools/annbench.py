@@ -24,7 +24,10 @@ max(D // 16, 4), K = 256, OPQ on, fit at 10,000 points): the walk scores the
 codes and the results are reranked in f32, at L = 75 unless
 ``--search-size`` says otherwise (``bench.py:58-60``). ``--build pool`` is
 ``SEMADB_VAMANA_BUILD=pool``: the per-cluster kNN pool build, its seconds by
-stage.
+stage. ``--adversarial`` is ``BENCH_ADVERSARIAL``: ``embedding_like_adversarial``
+data (Zipf clusters, a 10x density imbalance, near-duplicates, boundary
+queries), made on the host at any size; with ``--fused`` one sample of
+dim + max(dim // 2, 16) columns split into the two views.
 
 Usage (the defaults are ``bench.py``'s: 1,000,000 x 128, 32,768 queries in
 batches of 4,096, spread 0.5, euclidean, assignCopies 2, k = 10):
@@ -67,6 +70,7 @@ from semadb_tpu_torch.tools.datasets import (
     compute_ground_truth,
     compute_ground_truth_device,
     embedding_like,
+    embedding_like_adversarial,
     embedding_like_device,
     embedding_like_views,
 )
@@ -421,15 +425,31 @@ def fused_ground_truth(train, test, weights, k: int, device) -> np.ndarray:
     return out
 
 
+def adversarial_views(n: int, dims, n_queries: int, seed: int = 42) -> list:
+    """Views of one ``embedding_like_adversarial`` sample of sum(dims)
+    columns, split by columns (``bench.py:_run_fused`` under
+    ``BENCH_ADVERSARIAL``): with euclidean views the weighted fused distance
+    over the split is a distance in the full space, so the adversarial
+    structure carries over to the combined-score ground truth."""
+    full = embedding_like_adversarial(n, sum(dims), n_queries, seed=seed)
+    cuts = np.cumsum([0, *dims])
+    return [AnnDataset(f"adv-view{i + 1}", "euclidean", np.ascontiguousarray(full.train[:, lo:hi]),
+                       np.ascontiguousarray(full.test[:, lo:hi]))
+            for i, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:]))]
+
+
 def run_fused(n: int, dim: int, n_queries: int, k: int = 10, batch: int = 4096, copies: int = FUSED_COPIES,
               num_probes: int = 0, device="cuda", profile: bool = False, keep: Optional[dict] = None,
-              seed: int = 42) -> dict:
+              seed: int = 42, adversarial: bool = False, num_clusters: int = 0, sweep=()) -> dict:
     """``BENCH_MODE=fused`` on the port: two views of ``dim`` and
-    max(dim // 2, 16) from ``embedding_like_views(seed=42)``, euclidean,
-    weights 0.7 and 0.3, ``copies`` copies a point, automatic clusters and
-    probes, one ``insert_bulk``; recall@10 against the exact combined-score
-    ground truth over every query; QPS best of 3 pipelined passes. ``keep``
-    receives the ``index`` and the query ``views``."""
+    max(dim // 2, 16) from ``embedding_like_views(seed=42)`` (or, with
+    ``adversarial``, from :func:`adversarial_views`), euclidean,
+    weights 0.7 and 0.3, ``copies`` copies a point, ``num_clusters`` clusters
+    (0 = automatic) and automatic probes, one ``insert_bulk``; recall@10
+    against the exact combined-score ground truth over every query; QPS best
+    of 3 pipelined passes. Each probe count in ``sweep`` is one more operating
+    point on the same build (best of two passes, ``BENCH_FUSED_SWEEP``).
+    ``keep`` receives the ``index`` and the query ``views``."""
     from semadb_tpu_torch.index.fused import FusedHybridIVF
 
     device = torch.device(device)
@@ -437,13 +457,16 @@ def run_fused(n: int, dim: int, n_queries: int, k: int = 10, batch: int = 4096, 
         torch.cuda.reset_peak_memory_stats(device)
     d2 = max(dim // 2, 16)
     t0 = time.perf_counter()
-    ds1, ds2 = embedding_like_views(n, [dim, d2], n_queries, seed=seed)
+    if adversarial:
+        ds1, ds2 = adversarial_views(n, [dim, d2], n_queries, seed=seed)
+    else:
+        ds1, ds2 = embedding_like_views(n, [dim, d2], n_queries, seed=seed)
     data_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     gt = fused_ground_truth([ds1.train, ds2.train], [ds1.test, ds2.test], FUSED_WEIGHTS, k, device)
     gt_s = time.perf_counter() - t0
     idx = FusedHybridIVF([dim, d2], ["euclidean", "euclidean"], list(FUSED_WEIGHTS), assign_copies=copies,
-                         device=device)
+                         num_clusters=num_clusters, device=device)
     t0 = time.perf_counter()
     idx.insert_bulk(np.arange(2, n + 2, dtype=np.int32), [ds1.train, ds2.train])
     idx.sync()
@@ -451,29 +474,41 @@ def run_fused(n: int, dim: int, n_queries: int, k: int = 10, batch: int = 4096, 
     ds1.train = ds2.train = None
     views = [ds1.test, ds2.test]
 
-    def query_all():
+    def query_all(probes: int):
         out = np.empty((n_queries, k), np.int64)
         t1 = time.perf_counter()
         pipe = AsyncDispatcher(depth=8)
         for i in range(0, n_queries, batch):
-            pipe.submit(idx.search_batch_async, [v[i : i + batch] for v in views], k, None, num_probes)
+            pipe.submit(idx.search_batch_async, [v[i : i + batch] for v in views], k, None, probes)
         for j, (_, ids) in enumerate(pipe.results()):
             out[j * batch : j * batch + len(ids)] = ids - 2  # node id → train row
         return out, time.perf_counter() - t1
 
-    query_all()  # warm-up
+    def recall_of(got: np.ndarray) -> float:
+        return float(np.mean([len(set(got[i]) & set(gt[i])) / k for i in range(n_queries)]))
+
+    query_all(num_probes)  # warm-up
     walls = []
     best = None
     for _ in range(3):
-        got, wall = query_all()
+        got, wall = query_all(num_probes)
         walls.append(wall)
         if best is None or wall < best[1]:
             best = (got, wall)
     got, wall = best
-    recall = float(np.mean([len(set(got[i]) & set(gt[i])) / k for i in range(n_queries)]))
+    recall = recall_of(got)
+    sweep_rows = []
+    for p in sweep:
+        query_all(p)  # warm-up
+        (o2, w2), (o3, w3) = query_all(p), query_all(p)
+        if w3 < w2:
+            o2, w2 = o3, w3
+        sweep_rows.append({"probes": p, "recall@10": recall_of(o2), "qps": n_queries / w2})
+        print(f"# fused sweep p={p}: recall {sweep_rows[-1]['recall@10']:.4f} qps {n_queries / w2:.0f}",
+              file=sys.stderr, flush=True)
     inner = idx.index
     out = {
-        "dataset": f"embedding-views-{n}x{dim}+{d2}", "n": n, "queries": n_queries, "batch": batch,
+        "dataset": f"{'adversarial' if adversarial else 'embedding'}-views-{n}x{dim}+{d2}", "n": n, "queries": n_queries, "batch": batch,
         "recall@10": recall, "qps": n_queries / wall, "qps_spread": sorted(n_queries / w for w in walls),
         "build_s": build_s, "build_split_s": dict(inner.refit_seconds), "ground_truth_s": gt_s, "data_s": data_s,
         "aug_dim": idx.aug_dim, "copies": copies, "weights": list(FUSED_WEIGHTS),
@@ -481,6 +516,7 @@ def run_fused(n: int, dim: int, n_queries: int, k: int = 10, batch: int = 4096, 
         "slab_dtype": str(inner.slabs.dtype).replace("torch.", ""), "projected": inner._proj is not None,
         "probes": inner._num_probes(num_probes), "device": str(device),
         "overflow_rows": int(inner.ovf_ids.shape[0] - len(inner._ovf_free)),
+        **({"sweep": sweep_rows} if sweep_rows else {}),
     }
     if device.type == "cuda":
         out["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
@@ -519,6 +555,9 @@ def main(argv=None, keep: Optional[dict] = None) -> int:
                     help="the Vamana bulk build (SEMADB_VAMANA_BUILD): two passes of walks, or the kNN pool build")
     ap.add_argument("--fused", action="store_true",
                     help="bench.py's BENCH_MODE=fused: two views (dim, max(dim // 2, 16)), the fused engine")
+    ap.add_argument("--adversarial", action="store_true",
+                    help="bench.py's BENCH_ADVERSARIAL: embedding_like_adversarial data (with --fused, one "
+                         "sample split into the two views)")
     args = ap.parse_args(argv)
     vamana = args.engine == "vamana"
     if args.batch is None:
@@ -538,7 +577,8 @@ def main(argv=None, keep: Optional[dict] = None) -> int:
             ap.error(f"--fused takes none of {', '.join('--' + name for name in taken)}")
         out = run_fused(args.n, args.dim, args.queries, k=args.k, batch=args.batch,
                         copies=FUSED_COPIES if args.copies is None else args.copies, num_probes=args.probes,
-                        device=device, profile=device.type == "cuda", keep=keep, seed=args.seed)
+                        device=device, profile=device.type == "cuda", keep=keep, seed=args.seed,
+                        adversarial=args.adversarial)
         print(json.dumps(out))
         return 0
     quantizer = None
@@ -552,7 +592,10 @@ def main(argv=None, keep: Optional[dict] = None) -> int:
     on_card = args.n * args.dim >= 2**28 and device.type == "cuda"
     make = functools.partial(embedding_like_device, device=device) if on_card else embedding_like
     t0 = time.perf_counter()
-    ds = make(args.n, args.dim, args.queries, spread=args.spread, metric=args.metric, seed=args.seed)
+    if args.adversarial:  # bench.py:1221-1224: the adversarial corpus is made on the host at any size
+        ds = embedding_like_adversarial(args.n, args.dim, args.queries, metric=args.metric, seed=args.seed)
+    else:
+        ds = make(args.n, args.dim, args.queries, spread=args.spread, metric=args.metric, seed=args.seed)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     data_s = time.perf_counter() - t0

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from typing import List, Sequence, Tuple
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -28,6 +29,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# Seconds this process has spent in the compilers (the bench's
+# ``build_compile_s``: an engine's first use builds its kernels)
+BUILD_SECONDS = 0.0
 
 
 def nvcc() -> str:
@@ -62,8 +66,11 @@ def build_library(
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    global BUILD_SECONDS
+    t0 = time.perf_counter()
     try:
         proc = subprocess.run([compiler, *flags, "-o", tmp, source], capture_output=True, text=True)
+        BUILD_SECONDS += time.perf_counter() - t0
         if proc.returncode != 0:
             raise RuntimeError(
                 f"{compiler} failed ({proc.returncode}) building {source}:\n{proc.stdout}{proc.stderr}"
