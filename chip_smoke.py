@@ -11,10 +11,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. Environment and build: the card (``nvidia-smi``), torch and CUDA versions,
    the codecs, then K1 (``semadb_tpu_torch/csrc/hamming.cu``), K2
    (``csrc/gather.cu``), K3 (``csrc/ivf_scan.cu``), K4
-   (``csrc/ivf_rerank.cu``), K9 (``csrc/ivf_pq_scan.cu``), K10
+   (``csrc/ivf_rerank.cu``), K5 (``csrc/ivf_probe_topk.cu``), K9 (``csrc/ivf_pq_scan.cu``), K10
    (``csrc/vamana_search.cu``) and K11 (``csrc/vamana_prune.cu``) built with
    ``nvcc`` and the key-value store (``csrc/kvstore.cpp``) with ``g++`` from
-   the checkout's sources, all eight at once, timed.
+   the checkout's sources, all nine at once, timed.
 2. Kernel: K1 against its plain PyTorch version on the card, hamming and
    jaccard, on both of its routes (tensor cores and CUDA cores), at B in
    {1, 2, 7, 8, 15, 16, 17, 33, 64, 1000} (both sides of the route
@@ -94,7 +94,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    S = 192, r = 128, bf16, 30% NIL slots, at B in {1, 4096} x p in {24, 96},
    with and without a mask. Distances must agree within 1e-5 of the
    summed terms' magnitude (the sums run in another order), ids by the tie
-   rule at that tolerance, pools as multisets.
+   rule at that tolerance, pools as multisets. K5 (``csrc/ivf_probe_topk.cu``,
+   probe selection) against a float64 reference at six shapes (``K5_CHECKS``:
+   B from 1 to 4,096, C up to 131,072, D in {100, 128, 194}, p in {24, 96,
+   256}, both metrics), ids by the tie rule at that tolerance, then timed
+   beside its plain version at the bench cell's shape, B = 1 and C = 131,072.
 8. The IVF bench cell: ``semadb_tpu_torch.tools.annbench.main`` at its
    defaults on ``cuda`` (the JAX package's default ``python bench.py``:
    1,000,000 x 128 ``embedding_like(spread=0.5, seed=42)``, euclidean,
@@ -434,9 +438,9 @@ def phase_environment(torch) -> dict:
 
 
 def phase_build():
-    """Build K1-K4, K9-K11 and the key-value store at once, one compiler each."""
+    """Build K1-K5, K9-K11 and the key-value store at once, one compiler each."""
     from semadb_tpu_torch.ops.kernels import (
-        gather, hamming, ivf_pq_scan, ivf_rerank, ivf_scan, vamana_prune, vamana_search,
+        gather, hamming, ivf_pq_scan, ivf_probe_topk, ivf_rerank, ivf_scan, vamana_prune, vamana_search,
     )
     from semadb_tpu_torch.store import native
     from semadb_tpu_torch.utils.build import BUILD_DIR
@@ -447,8 +451,8 @@ def phase_build():
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    kernels = (("K1", hamming), ("K2", gather), ("K3", ivf_scan), ("K4", ivf_rerank), ("K9", ivf_pq_scan),
-               ("K10", vamana_search), ("K11", vamana_prune))
+    kernels = (("K1", hamming), ("K2", gather), ("K3", ivf_scan), ("K4", ivf_rerank), ("K5", ivf_probe_topk),
+               ("K9", ivf_pq_scan), ("K10", vamana_search), ("K11", vamana_prune))
     with ThreadPoolExecutor(len(kernels) + 1) as pool:
         jobs = {name: pool.submit(timed, mod._library) for name, mod in kernels}
         jobs["kvstore"] = pool.submit(timed, native.load_library)
@@ -463,7 +467,7 @@ def phase_build():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
     log(f"[build] kvstore {native.SOURCE}: loaded in {took['kvstore']:.2f} s")
-    return hamming, gather, ivf_scan, ivf_rerank, ivf_pq_scan, vamana_search, vamana_prune
+    return hamming, gather, ivf_scan, ivf_rerank, ivf_probe_topk, ivf_pq_scan, vamana_search, vamana_prune
 
 
 def _check_k1(torch, hamming, q, x, what: str) -> float:
@@ -1190,6 +1194,68 @@ def phase_ivf_kernels(torch, ivf_scan, ivf_rerank, device) -> dict:
     return {"k3_err": worst3, "k4_err": worst4}
 
 
+# K5 against a float64 reference: (B, C, D, p, metric), a subset of the card
+# tests' shapes with the bench cell's and the 10M cell's among them
+K5_CHECKS = ((1, 32768, 128, 24, "euclidean"), (7, 1000, 194, 96, "dot"), (64, 131072, 100, 256, "euclidean"),
+             (4096, 32768, 128, 24, "euclidean"), (4096, 131072, 128, 24, "dot"), (4096, 32768, 128, 256, "dot"))
+# K5 timed at the bench cell's shape, at B = 1 and at the 10M cell's C: (B, C, D, p)
+K5_TIMED = ((4096, 32768, 128, 24), (1, 32768, 128, 24), (4096, 131072, 128, 24))
+
+
+def phase_probe_topk(torch, ivf_probe_topk, device) -> dict:
+    """K5 against a float64 reference at K5_CHECKS (ids by the tie rule,
+    scores within IVF_RTOL of (|q| + max |c|)^2), then timed beside its plain
+    version (the torch chain it replaced) at K5_TIMED: device time a call
+    from the profiler's events; bounds, the larger of the operations and the
+    bytes (queries, centroids, norms, ids) at 3.35 TB/s, with the products at
+    the FFMA rate (67 TFLOP/s) and as three TF32 products (495 TFLOP/s)."""
+    from semadb_tpu_torch.ops.topk import tie_rule_errors
+
+    gen = torch.Generator(device=device).manual_seed(1357)
+
+    def operands(b, c, d, metric):
+        cents = torch.randn((c, d), generator=gen, device=device)
+        q = cents[torch.randint(0, c, (b,), generator=gen, device=device)]
+        q = (q + 0.3 * torch.randn((b, d), generator=gen, device=device)).contiguous()
+        return q, cents, (cents * cents).sum(-1) if metric == "euclidean" else torch.zeros(c, device=device)
+
+    for b, c, d, p, metric in K5_CHECKS:
+        q, cents, sq = operands(b, c, d, metric)
+        got = ivf_probe_topk.ivf_probe_topk(q, cents, sq, p)
+        torch.cuda.synchronize()
+        score = sq.double()[None, :] - 2.0 * (q.double() @ cents.double().T)
+        want = torch.topk(score, p, dim=1, largest=False, sorted=True).indices.to(torch.int32)
+        atol = IVF_RTOL * (q.double().norm(dim=1) + cents.double().norm(dim=1).max()) ** 2
+        rows = (got != want).any(dim=1).nonzero()[:, 0].tolist()
+        sc, gh, wh = score.cpu(), got.cpu(), want.cpu()
+        for r in rows:
+            errs = tie_rule_errors(sc[r, wh[r].long()].tolist(), wh[r].tolist(), sc[r, gh[r].long()].tolist(),
+                                   gh[r].tolist(), lambda i, r=r: float(sc[r, i]), atol=float(atol[r]))
+            if errs:
+                raise AssertionError(f"K5 B={b} C={c} D={d} p={p} {metric}, row {r}: {errs[:3]}")
+        log(f"[probe-topk] K5 == float64 at B={b} C={c} D={d} p={p} {metric} ({len(rows)} rows by the tie rule)")
+    out = {}
+    for b, c, d, p in K5_TIMED:
+        q, cents, sq = operands(b, c, d, "euclidean")
+        # every device event of the calls: K5's two kernels (the wrapper's buffers launch none)
+        k5_ms = _device_ms(torch, functools.partial(ivf_probe_topk.ivf_probe_topk, q, cents, sq, p),
+                           runs=IVF_TIMED_RUNS)
+        plain_ms = _device_ms(torch, functools.partial(ivf_probe_topk.ivf_probe_topk_plain, q, cents, sq, p),
+                              runs=IVF_TIMED_RUNS)
+        call_ms = _median_call_ms(torch, functools.partial(ivf_probe_topk.ivf_probe_topk, q, cents, sq, p))
+        plain_call_ms = _median_call_ms(torch, functools.partial(ivf_probe_topk.ivf_probe_topk_plain, q, cents, sq, p))
+        flops, nbytes = 2 * b * c * d, (b * d + c * d + c + b * p) * 4
+        ffma_ms = max(flops / 67e12, nbytes / 3.35e12) * 1e3
+        tf32_ms = max(3 * flops / 495e12, nbytes / 3.35e12) * 1e3
+        log(f"[probe-topk] K5 B={b} C={c} D={d} p={p} plan {ivf_probe_topk.plan(b, c, p, torch.cuda.get_device_properties(0).multi_processor_count)}: "
+            f"{k5_ms:.4f} ms a call on the device ({call_ms:.4f} ms with its host work); bound {ffma_ms:.4f} ms "
+            f"in FFMA ({ffma_ms / k5_ms:.1%}), {tf32_ms:.4f} ms as 3xTF32 ({tf32_ms / k5_ms:.1%}); the plain "
+            f"version (the torch chain) {plain_ms:.4f} ms ({plain_call_ms:.4f} ms with its host work)")
+        out[f"{b}x{c}x{d}p{p}"] = {"ms": k5_ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                                   "plain_call_ms": plain_call_ms, "ffma_ms": ffma_ms, "tf32_ms": tf32_ms}
+    return out
+
+
 def _k4_times(torch, ivf_rerank, ops, baseline=None) -> dict:
     """K4's device time per call at ``ops`` (vectors, queries, pool, coarse,
     k, metric, dedup) and at B = 1 (the first query), and at B = 1 a call's
@@ -1261,12 +1327,15 @@ def phase_ivf_cell(torch, counted, argv=(), baseline=None) -> dict:
     from semadb_tpu_torch.ops.kernels import ivf_rerank, ivf_scan
 
     res, prof, launches, _, keep = _run_annbench(counted, argv, "ivf-cell")
+    k5_routes = _k5_routes(counted)
     if res["recall@10"] < CELL_RECALL:
         raise AssertionError(f"the IVF cell's recall@10 {res['recall@10']} is below {CELL_RECALL}")
-    if launches["K3"] <= 0 or launches["K4"] <= 0:
-        raise AssertionError(f"the IVF cell did not run K3 and K4 on the card: {launches}")
+    if launches["K3"] <= 0 or launches["K4"] <= 0 or launches["K5"] <= 0:
+        raise AssertionError(f"the IVF cell did not run K3, K4 and K5 on the card: {launches}")
+    if k5_routes.get("kernel", 0) <= 0 or any(r.startswith("library") for r in k5_routes):
+        raise AssertionError(f"the IVF cell's probe selection left K5: {k5_routes}")
     log(f"[ivf-cell] launches during the cell's searches: {launches} (K3: one a call, "
-        f"{len(ivf_scan.KERNELS)} kernels and a memset each)")
+        f"{len(ivf_scan.KERNELS)} kernels and a memset each); K5 by route {k5_routes}")
 
     # One more search of the cell, after the counts were read, hands over
     # the arguments it gives K3 and K4
@@ -1332,7 +1401,8 @@ def phase_ivf_cell(torch, counted, argv=(), baseline=None) -> dict:
     log("[ivf-cell] K4 by B (device ms a call, the cell's first B queries): "
         + "; ".join(f"B={b} {v:.4f}" for b, v in k4_sweep.items())
         + f"; at B={B} on the element route (the rows off the 16-byte grid) {t4_element:.4f} ms")
-    return {"res": res, "profile": prof, "k3": k3, "k4": k4, "index": idx, "queries": test}
+    return {"res": res, "profile": prof, "k3": k3, "k4": k4, "k5": {"launches": launches["K5"], "by_route": k5_routes},
+            "index": idx, "queries": test}
 
 
 def _check_path_kernels(torch, ivf_scan, ivf_rerank, idx, queries, k: int, probes: int, what: str) -> dict:
@@ -1448,15 +1518,16 @@ def phase_ivf_http(torch, counted, device, seed: int, n_points: int = HTTP_IVF_P
                     if abs(pnt["_distance"] - d[row]) > 1e-4 * max(1.0, d[row]):
                         raise AssertionError(f"HTTP vectorIVF: distance {pnt['_distance']} of a point at {d[row]}")
         launches = {nm: mod.LAUNCHES for nm, mod in counted}
+        k5_routes = _k5_routes(counted)
     recall = hits / 100
     log(f"[ivf-http] {n_points} points of {HTTP_IVF_DIM}-d into a vectorIVF collection through "
         f"ClusterNode.insert_points in {ingest_s:.2f} s; 10 HTTP searches: recall@10 {recall:.3f} against "
-        f"numpy brute force, p50 {np.median(lat) * 1e3:.2f} ms; launches {launches}")
+        f"numpy brute force, p50 {np.median(lat) * 1e3:.2f} ms; launches {launches}; K5 by route {k5_routes}")
     if recall < HTTP_IVF_RECALL:
         raise AssertionError(f"HTTP vectorIVF recall@10 {recall} is below {HTTP_IVF_RECALL}")
     if launches["K3"] <= 0 or launches["K4"] <= 0:
         raise AssertionError(f"the HTTP vectorIVF searches did not run K3 and K4: {launches}")
-    return {"recall": recall, "launches": launches}
+    return {"recall": recall, "launches": launches, "k5_by_route": k5_routes}
 
 
 def phase_wide_filter(torch, counted, idx, queries, seed: int) -> dict:
@@ -1479,6 +1550,7 @@ def phase_wide_filter(torch, counted, idx, queries, seed: int) -> dict:
     _, got = idx.search_batch(q, LIMIT, filter_mask=fm)
     search_s = time.perf_counter() - t0
     launches = {nm: mod.LAUNCHES for nm, mod in counted}
+    k5_routes = _k5_routes(counted)
     if launches["K3"] <= 0 or launches["K4"] <= 0:
         raise AssertionError(f"the widened-probe search did not run K3 and K4: {launches}")
     # numpy: f32 scores over the members, then the best 64 of each query in f64
@@ -1497,10 +1569,10 @@ def phase_wide_filter(torch, counted, idx, queries, seed: int) -> dict:
     log(f"[wide-filter] {len(members)} of {len(ids)} points in the filter (> FILTER_EXACT_CAP {FILTER_EXACT_CAP}): "
         f"{len(q)} queries with p = {min(FILTER_WIDEN * p, idx.centroids.shape[0])} probes ({FILTER_WIDEN} x {p}) "
         f"in {search_s * 1e3:.1f} ms; recall@10 {recall:.4f} against numpy's exact search over the members; "
-        f"launches {launches}")
+        f"launches {launches}; K5 by route {k5_routes}")
     if recall < WIDE_RECALL:
         raise AssertionError(f"widened-probe recall@10 {recall} is below {WIDE_RECALL}")
-    return {"recall": recall, "launches": launches, "members": int(len(members))}
+    return {"recall": recall, "launches": launches, "k5_by_route": k5_routes, "members": int(len(members))}
 
 
 CELL_10M_ARGV = ("--n", "10000000", "--sweep", "48,96")
@@ -1529,6 +1601,7 @@ def phase_ivf_10m(torch, counted, argv=CELL_10M_ARGV) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res, prof, launches, _, keep = _run_annbench(counted, argv, "ivf-10m")
+    k5_routes = _k5_routes(counted)
     cell_s = time.perf_counter() - t0
     idx, test, bench, gt = keep["index"], keep["queries"], keep["bench"], keep["ground_truth"]
     n, batch = res["n"], res["batch"]
@@ -1552,7 +1625,7 @@ def phase_ivf_10m(torch, counted, argv=CELL_10M_ARGV) -> dict:
     for row in res["sweep"]:
         log(f"[ivf-10m] sweep: p={row['probes']} recall@10 {row['recall@10']:.4f} eps-recall "
             f"{row['recall_eps@10']:.4f} QPS {row['qps']:.1f} (of 2 passes: {row['qps_spread']})")
-    log(f"[ivf-10m] launches during the cell's searches: {launches}")
+    log(f"[ivf-10m] launches during the cell's fit and searches: {launches}; K5 by route {k5_routes}")
 
     kc = _cell_kernels(torch, ivf_scan, ivf_rerank, idx, test[:batch], "the 10M cell")
     k3_ops, k4_ops, k3_bytes, k3_call = kc["k3_ops"], kc["k4_ops"], kc["k3_bytes"], kc["k3_call"]
@@ -1611,6 +1684,7 @@ def phase_ivf_10m(torch, counted, argv=CELL_10M_ARGV) -> dict:
         ).train.cpu().numpy(),
     }
     writes, next_id = {}, n + 2
+    k5_before = dict(dict(counted)["K5"].LAUNCHES_BY)
     for what, new in batches.items():
         w = _write_after_fit(ivf, idx, new, np.arange(next_id, next_id + len(new)))
         next_id += len(new)
@@ -1621,6 +1695,9 @@ def phase_ivf_10m(torch, counted, argv=CELL_10M_ARGV) -> dict:
             f"{len(new) - w['lost']} of {len(new)} come back as their own nearest neighbour")
         if w["lost"] or not w["two_level_assignments"] or w["refit"]:
             raise AssertionError(f"the write of {what} after the 10M fit: {w}")
+    # Write placement probes Cn // 170 clusters a row, past K5's cap at this C
+    k5_write_routes = _k5_routes(counted, k5_before)
+    log(f"[ivf-10m] K5 by route over the two write transactions: {k5_write_routes}")
     log(f"[ivf-10m] peak device memory over the phase {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"resident {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     k3 = {"launches": launches["K3"], "max_abs_err": max(kc["err3"], err32), "ms": kc["t3"]["ms"],
@@ -1631,8 +1708,9 @@ def phase_ivf_10m(torch, counted, argv=CELL_10M_ARGV) -> dict:
           "f32_bound_ms": _bound_ms(bytes32)}
     k4 = {"launches": launches["K4"], "max_abs_err": kc["err4"], "ms": t4, "plain_ms": kc["t4_plain"],
           "bound_ms": _bound_ms(kc["k4_bytes"]), "bytes": kc["k4_bytes"], "distinct_rows": kc["rows4"]}
-    return {"res": res, "profile": prof, "k3": k3, "k4": k4, "recall_f32": recall32, "qps_f32": len(gt) / wall32,
-            "writes": writes, "cell_s": cell_s}
+    k5 = {"launches": launches["K5"], "by_route": k5_routes, "writes_by_route": k5_write_routes}
+    return {"res": res, "profile": prof, "k3": k3, "k4": k4, "k5": k5, "recall_f32": recall32,
+            "qps_f32": len(gt) / wall32, "writes": writes, "cell_s": cell_s}
 
 
 def _write_after_fit(ivf, idx, new, new_ids) -> dict:
@@ -2124,12 +2202,14 @@ def phase_ivfpq_cell(torch, counted, ivf_pq_scan, ivf_rerank, baseline=None) -> 
     operands and timed beside the tree's K9, in turns: baseline, tree, tree,
     baseline."""
     res, prof, launches, by_entry, keep = _run_annbench(counted, PQ_CELL_ARGV, "ivfpq-cell")
+    k5_routes = _k5_routes(counted)
     if res["recall@10"] < PQ_CELL_RECALL or not res["pq"]["active"]:
         raise AssertionError(f"the IVF-PQ cell's recall@10 {res['recall@10']} is below {PQ_CELL_RECALL}, "
                              f"or PQ is not active: {res['pq']}")
     if by_entry.get("probed", 0) <= 0 or launches["K4"] <= 0 or launches["K3"] != 0:
         raise AssertionError(f"the IVF-PQ cell must run K9 and K4, and not K3: {launches}, K9 {by_entry}")
-    log(f"[ivfpq-cell] launches during the cell's searches: {launches}; K9 by entry {by_entry}")
+    log(f"[ivfpq-cell] launches during the cell's searches: {launches}; K9 by entry {by_entry}; K5 by route "
+        f"{k5_routes}")
     idx, test = keep["index"], keep["queries"]
     ops: dict = {}
     idx.search_batch_async(test[: res["batch"]], LIMIT, keep=ops)
@@ -2207,7 +2287,8 @@ def phase_ivfpq_cell(torch, counted, ivf_pq_scan, ivf_rerank, baseline=None) -> 
         f"{dense['shape']} (max |err| {err_d:.3g}): {t9d:.4f} ms (bound {dense['bound_ms']:.4f}, "
         f"{dense['bound_ms'] / t9d:.1%} of it); plain {t9d_plain:.4f} ms")
     log("[ivfpq-cell] " + _k4_line("K4 at rr = 256", t4, k4["bound_ms"]) + f"; plain {t4_plain:.4f} ms")
-    return {"res": res, "profile": prof, "k9": k9, "k9_dense": dense, "k4": k4}
+    return {"res": res, "profile": prof, "k9": k9, "k9_dense": dense, "k4": k4,
+            "k5": {"launches": launches["K5"], "by_route": k5_routes}}
 
 
 def phase_fused_cell(torch, counted, ivf_scan, ivf_rerank) -> dict:
@@ -4162,6 +4243,16 @@ def _phase(name: str, fn, *args, **kwargs):
     return out
 
 
+def _k5_routes(counted, before=None) -> dict:
+    """K5's calls on the card by route since the last :func:`_zero_counts`
+    (or since ``before``, an earlier copy of its ``LAUNCHES_BY``): "kernel"
+    and "library" (p above its cap, the torch calls), with "_b1" for B = 1."""
+    by = dict(counted)["K5"].LAUNCHES_BY
+    before = before or {}
+    return {f"{route}{'_b1' if one else ''}": n - before.get((route, one), 0)
+            for (route, one), n in sorted(by.items()) if n != before.get((route, one), 0)}
+
+
 def _zero_counts(counted) -> None:
     """Every kernel's launch count to 0, before a path is driven."""
     for _, mod in counted:
@@ -4210,9 +4301,10 @@ def main() -> int:
     device = torch.device("cuda")
     t_start = time.perf_counter()
     env = _phase("1 environment", phase_environment, torch)
-    hamming, gather, ivf_scan, ivf_rerank, ivf_pq_scan, vamana_search, vamana_prune = _phase("1 build", phase_build)
-    counted = (("K1", hamming), ("K2", gather), ("K3", ivf_scan), ("K4", ivf_rerank), ("K9", ivf_pq_scan),
-               ("K10", vamana_search), ("K11", vamana_prune))
+    hamming, gather, ivf_scan, ivf_rerank, ivf_probe_topk, ivf_pq_scan, vamana_search, vamana_prune = _phase(
+        "1 build", phase_build)
+    counted = (("K1", hamming), ("K2", gather), ("K3", ivf_scan), ("K4", ivf_rerank), ("K5", ivf_probe_topk),
+               ("K9", ivf_pq_scan), ("K10", vamana_search), ("K11", vamana_prune))
     if args.mesh_only:
         mfleet, mhttp = run_phase_22(torch, counted, device, args)
         print(env["smi"])
@@ -4242,13 +4334,14 @@ def main() -> int:
     g_worst = _phase("5 K2 against its plain version", phase_gather_kernel, torch, gather, device)
     gb = _phase("6 gatherbench", phase_gatherbench, torch, hamming, gather)
     kerr = _phase("7 K3 and K4 against their plain versions", phase_ivf_kernels, torch, ivf_scan, ivf_rerank, device)
+    k5 = _phase("7 K5 against float64, timed", phase_probe_topk, torch, ivf_probe_topk, device)
     pqerr = _phase("7 K9 against its plain version", phase_pq_kernels, torch, ivf_pq_scan, device)
     baseline = load_k4_baseline(args.k4_baseline) if args.k4_baseline else None
     k9_baseline = load_k9_baseline(args.k9_baseline) if args.k9_baseline else None
     vamana_baseline = load_vamana_baseline(args.vamana_baseline) if args.vamana_baseline else None
     cell = _phase("8 the IVF cell", phase_ivf_cell, torch, counted, baseline=baseline)
     proj = _phase("8 K4 at the projected shape", phase_k4_projected, torch, ivf_rerank, args.seed, baseline)
-    _phase("8b vectorIVF over HTTP", phase_ivf_http, torch, counted, device, args.seed)
+    ihttp = _phase("8b vectorIVF over HTTP", phase_ivf_http, torch, counted, device, args.seed)
     hybrid = _phase("9 the hybrid collection over HTTP", phase_hybrid, torch, counted, device, args.seed)
     wide = _phase("9 the widened-probe filter", phase_wide_filter, torch, counted, cell["index"], cell["queries"],
                   args.seed)
@@ -4468,6 +4561,24 @@ def main() -> int:
         "pq_cell": {key: v for key, v in pqv["k4"].items()},
         "launches_pq_cell": pqv["launches"]["K4"],
         "launches_http": qhttp["launches"]["K4"],
+    }, {
+        "name": "K5 ivf_probe_topk (IVF probe selection: the score tile and the top-p in one pass)",
+        "route": "cuda",
+        "source": "semadb_tpu_torch/csrc/ivf_probe_topk.cu",
+        "replaces": "semadb_tpu/index/ivf.py:340",
+        "launches": cell["k5"]["launches"],
+        "launches_by_route": cell["k5"]["by_route"],
+        "bound_by": "operations",
+        "by_shape": k5,
+        "launches_http": {"launches": ihttp["launches"]["K5"], "by_route": ihttp["k5_by_route"]},
+        "launches_hybrid": hybrid["launches"]["K5"],
+        "launches_wide_filter": {"launches": wide["launches"]["K5"], "by_route": wide["k5_by_route"]},
+        "launches_bench": {mode: n["K5"] for mode, n in bench["launches"].items()},
+        "launches_mesh": {"fleet": mfleet["launches"]["K5"], "http": mhttp["launches"]["K5"]},
+        "launches_cluster": cluster["launches"]["K5"],
+        "cell_10m": big["k5"],
+        "ivfpq_cell": pqcell["k5"],
+        "library": "the torch chain K5 replaced (GEMM, scale and shift, topk): its plain version, plain_ms",
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
 // The dynamic shared-memory opt-in of the kernels that take more than 48 KB
-// a block: K3 (ivf_scan.cu), K4 (ivf_rerank.cu), K9 (ivf_pq_scan.cu), K10
-// (vamana_search.cu) and K11 (vamana_prune.cu).
+// a block: K3 (ivf_scan.cu), K4 (ivf_rerank.cu), K5 (ivf_probe_topk.cu), K9
+// (ivf_pq_scan.cu), K10 (vamana_search.cu) and K11 (vamana_prune.cu).
 //
 // A kernel is opted in once per device, to the most a block may have there
 // (cudaDevAttrMaxSharedMemoryPerBlockOptin, less the kernel's static shared

@@ -24,8 +24,9 @@ the exact-rerank state, all tensors on the index's device.
 
 Placement, SOAR copies, spill relocation and the refit schedule are the JAX
 package's, line for line (its module docstring gives the measurements behind
-them). A query (:func:`_ivf_query`) is: probe selection (one [B, C]
-``torch.matmul`` + ``topk``) → K3, the hand-written probed-slab scan with a
+them). A query (:func:`_ivf_query`) is: probe selection (K5, the
+hand-written score tile and top-p in one pass, ``ops/kernels/ivf_probe_topk.py``:
+the [B, C] scores are never stored) → K3, the hand-written probed-slab scan with a
 running top-rr (``ops/kernels/ivf_scan.py``: the probe list is inverted on
 the device, so each probed cluster is read once per group of up to 16 of the
 queries that probe it) → the overflow scan
@@ -78,6 +79,7 @@ import torch
 from semadb_tpu_torch.models import constants as C
 from semadb_tpu_torch.models.schema import VectorIVFParams
 from semadb_tpu_torch.ops.distance import pairwise_distance
+from semadb_tpu_torch.ops.kernels import ivf_probe_topk
 from semadb_tpu_torch.ops.kernels.ivf_pq_scan import ivf_pq_probe_scan, pq_scan
 from semadb_tpu_torch.ops.kernels.ivf_rerank import ivf_exact_rerank
 from semadb_tpu_torch.ops.kernels.ivf_scan import ivf_probe_scan
@@ -107,9 +109,6 @@ SLAB_BF16_BYTES = 2**32
 # Full [B, O] overflow distance matrix cap before the scan chunks it
 OVF_CHUNK_BYTES = 2**26
 OVF_CHUNK_ROWS = 65536
-# Full [B, C] probe-selection matrix cap before chunking over C
-PROBE_CHUNK_BYTES = 2**30
-PROBE_CHUNK_C = 16384
 # Cluster counts from here on take the two-level coarse quantizer: a flat
 # fit and assignment score every row against every cluster
 TWO_LEVEL_MIN_C = 65537
@@ -245,26 +244,15 @@ def _npow2(x: int, lo: int, hi: int) -> int:
 
 
 def _select_probes(qp, centroids, cent_sq, p: int) -> torch.Tensor:
-    """Top-p probe cluster ids per query (i32[B, p], nearest first): one
-    dense [B, C] ``torch.matmul`` + ``topk``, chunked over C past
-    PROBE_CHUNK_BYTES with a per-chunk top-p carry. The top-p is exact; the
-    JAX package takes ``approx_max_k`` from C = 2^17 and inside chunks."""
-    B = qp.shape[0]
-    Cn = centroids.shape[0]
-    p = min(p, Cn)
-    if B * Cn * 4 <= PROBE_CHUNK_BYTES:
-        cd = cent_sq[None, :] - 2.0 * (qp @ centroids.T)
-        return torch.topk(cd, p, dim=1, largest=False, sorted=True).indices.to(torch.int32)
-    cb = min(PROBE_CHUNK_C, Cn)
-    dists, ids = [], []
-    for c0 in range(0, Cn, cb):
-        dd = cent_sq[None, c0 : c0 + cb] - 2.0 * (qp @ centroids[c0 : c0 + cb].T)
-        v, i = torch.topk(dd, min(p, dd.shape[1]), dim=1, largest=False)
-        dists.append(v)
-        ids.append(i + c0)
-    d, i = torch.cat(dists, dim=1), torch.cat(ids, dim=1)
-    sel = torch.topk(d, p, dim=1, largest=False, sorted=True).indices
-    return torch.gather(i, 1, sel).to(torch.int32)
+    """Top-p probe cluster ids per query (i32[B, p], nearest first): K5 up
+    to its cap of p (``ivf_probe_topk.MAX_P``), else the library route, the
+    dense [B, C] ``torch.matmul`` + ``topk`` chunked over C past
+    ``ivf_probe_topk.PROBE_CHUNK_BYTES``. The top-p is exact; the JAX package
+    takes ``approx_max_k`` from C = 2^17 and inside chunks."""
+    p = min(p, centroids.shape[0])
+    if p <= ivf_probe_topk.MAX_P:
+        return ivf_probe_topk.ivf_probe_topk(qp.contiguous(), centroids.contiguous(), cent_sq.contiguous(), p)
+    return ivf_probe_topk.ivf_probe_topk_library(qp, centroids, cent_sq, p)
 
 
 def _overflow_scan(score, B: int, ovf_ids, filter_mask, rr: int):

@@ -489,7 +489,7 @@ def test_run_cluster_serves_the_three_node_configs(tmp_path):
         cl.check()
         assert cl.stop() == [0, 0, 0]
     for n in cl.nodes:
-        assert n.launches() == {k: 0 for k in ("K1", "K2", "K3", "K4", "K9", "K10", "K11")}  # plain versions
+        assert n.launches() == {k: 0 for k in ("K1", "K2", "K3", "K4", "K5", "K9", "K10", "K11")}  # plain versions
         assert run_cluster.startup_sync(n)[0][0] == {"collectionsMoved": 0, "shardsMoved": 0}
     with pytest.raises(RuntimeError, match="exited with code"):
         run_cluster.start(configs=run_cluster.CONFIGS[:1], root=str(tmp_path / "cuda"), device="cuda",

@@ -11,6 +11,9 @@ copies bits. K3 and K4 sum in another order than their plain versions:
 distances within 1e-5 of the summed terms' magnitude, ids by the tie rule at
 that tolerance. K9's ADC sums run in another order than its plain version's:
 scores within 1e-5 of M · max|table|, pools by the tie rule as multisets.
+K5's probe lists are held to a float64 reference: ids by the tie rule with
+scores within 1e-5 of (|q| + max |c|)^2, and exactly (ties to the lower id)
+where every score is an integer that float32 holds.
 """
 
 import numpy as np
@@ -21,7 +24,7 @@ from semadb_tpu_torch.index.flat import IndexFlat
 from semadb_tpu_torch.index.ivf import IndexIVF
 from semadb_tpu_torch.models.quantizer import BinaryQuantizerParams, ProductQuantizerParams, Quantizer
 from semadb_tpu_torch.models.schema import VectorFlatParams, VectorIVFParams
-from semadb_tpu_torch.ops.kernels import gather, hamming, ivf_pq_scan, ivf_rerank, ivf_scan
+from semadb_tpu_torch.ops.kernels import gather, hamming, ivf_pq_scan, ivf_probe_topk, ivf_rerank, ivf_scan
 from semadb_tpu_torch.ops.topk import pool_errors, sort_by_distance, tie_rule_errors
 
 CASES = [
@@ -403,6 +406,110 @@ def test_ivf_exact_rerank_matches_plain(cuda, b, d, k, rr, metric, dedup, layout
     _pools_agree(want, got, dist_of, atol)
 
 
+# K5 (B, C, D, p, metric, layout): every value of B {1, 7, 64, 4096}, C {64,
+# 1,000 (a ragged tile), 32,768, 131,072}, p {1, 24, 96, 256, C} and D {128,
+# 194 (off the 16-byte grid), 100}, both metrics, the bench cell's and the
+# 10M cell's shapes; layout "ties": integer rows with duplicates, so many
+# scores are equal and the lower id must come first
+PROBE_TOPK_CASES = [
+    (1, 64, 128, 1, "euclidean", None), (1, 1000, 194, 24, "dot", None), (1, 32768, 100, 96, "euclidean", None),
+    (1, 131072, 128, 256, "dot", None), (7, 64, 194, 64, "euclidean", None), (7, 1000, 100, 256, "dot", None),
+    (7, 32768, 128, 1, "euclidean", None), (7, 131072, 194, 24, "dot", None), (64, 64, 100, 24, "dot", None),
+    (64, 1000, 128, 96, "euclidean", None), (64, 32768, 194, 256, "dot", None), (64, 131072, 100, 1, "euclidean", None),
+    (4096, 64, 128, 64, "euclidean", None), (4096, 1000, 194, 1, "dot", None), (4096, 32768, 128, 24, "euclidean", None),
+    (4096, 131072, 128, 24, "euclidean", None), (4096, 32768, 100, 256, "dot", None),
+    (4096, 1000, 128, 96, "euclidean", None), (1, 131072, 194, 96, "euclidean", "ties"),
+    (7, 64, 100, 64, "euclidean", "ties"), (64, 1000, 128, 24, "dot", "ties"),
+    (4096, 32768, 128, 24, "euclidean", "ties"), (4096, 32768, 194, 256, "dot", "ties"),
+]
+PROBE_RTOL = 1e-5
+
+
+def _probe_operands(gen, b, c, d, metric, layout, device):
+    if layout == "ties":  # integer rows in [-2, 2], a fifth of them copies of others
+        cents = torch.randint(-2, 3, (c, d), generator=gen, device=device).float()
+        dup = torch.rand(c, generator=gen, device=device) < 0.2
+        cents[dup] = cents[torch.randint(0, c, (int(dup.sum()),), generator=gen, device=device)]
+        queries = torch.randint(-2, 3, (b, d), generator=gen, device=device).float()
+    else:
+        cents = torch.randn((c, d), generator=gen, device=device)
+        queries = cents[torch.randint(0, c, (b,), generator=gen, device=device)]
+        queries = queries + 0.3 * torch.randn((b, d), generator=gen, device=device)
+    cent_sq = (cents * cents).sum(-1) if metric == "euclidean" else torch.zeros(c, device=device)
+    return queries.contiguous(), cents.contiguous(), cent_sq.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,d,p,metric,layout", PROBE_TOPK_CASES)
+def test_ivf_probe_topk_matches_float64(cuda, b, c, d, p, metric, layout):
+    gen = torch.Generator(device="cuda").manual_seed(b * 7 + c + d + p)
+    queries, cents, cent_sq = _probe_operands(gen, b, c, d, metric, layout, cuda)
+    before = (ivf_probe_topk.LAUNCHES, ivf_probe_topk.LAUNCHES_BY["kernel", b == 1])
+    got = ivf_probe_topk.ivf_probe_topk(queries, cents, cent_sq, p)
+    torch.cuda.synchronize()
+    assert (ivf_probe_topk.LAUNCHES, ivf_probe_topk.LAUNCHES_BY["kernel", b == 1]) == (before[0] + 1, before[1] + 1)
+    assert got.shape == (b, p) and got.dtype == torch.int32
+    assert ((got >= 0) & (got < c)).all()
+    assert (got.sort(dim=1).values.diff(dim=1) > 0).all()  # p distinct clusters a query
+    score = cent_sq.double()[None, :] - 2.0 * (queries.double() @ cents.double().T)
+    if layout == "ties":  # integer scores: (score, id) orders every cluster, exactly
+        key = score * c + torch.arange(c, device=cuda, dtype=torch.float64)[None, :]
+        want = torch.topk(key, p, dim=1, largest=False, sorted=True).indices.to(torch.int32)
+        assert (score == score.round()).all()
+        assert torch.equal(got, want)
+        return
+    want = torch.topk(score, p, dim=1, largest=False, sorted=True).indices.to(torch.int32)
+    rows = (got != want).any(dim=1).nonzero()[:, 0].tolist()
+    atol = PROBE_RTOL * (queries.double().norm(dim=1) + cents.double().norm(dim=1).max()) ** 2
+    sc, gh, wh = score.cpu(), got.cpu(), want.cpu()
+    for bb in rows:
+        errs = tie_rule_errors(sc[bb, wh[bb].long()].tolist(), wh[bb].tolist(), sc[bb, gh[bb].long()].tolist(),
+                               gh[bb].tolist(), lambda i, bb=bb: float(sc[bb, i]), atol=float(atol[bb]))
+        assert not errs, (bb, errs[:3])
+
+
+@pytest.mark.cuda
+def test_select_probes_routes_past_the_cap_to_the_library(cuda):
+    """p up to MAX_P launches K5; MAX_P + 1 takes the torch calls, counted
+    under the library route by whether B is 1."""
+    import semadb_tpu_torch.index.ivf as ivf_mod
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for b in (1, 64):
+        queries, cents, cent_sq = _probe_operands(gen, b, 1000, 128, "euclidean", None, cuda)
+        for p, route in ((ivf_probe_topk.MAX_P, "kernel"), (ivf_probe_topk.MAX_P + 1, "library")):
+            before = dict(ivf_probe_topk.LAUNCHES_BY)
+            got = ivf_mod._select_probes(queries, cents, cent_sq, p)
+            torch.cuda.synchronize()
+            grew = {k: v - before.get(k, 0) for k, v in ivf_probe_topk.LAUNCHES_BY.items() if v != before.get(k, 0)}
+            assert grew == {(route, b == 1): 1} and got.shape == (b, p)
+            want = ivf_probe_topk.ivf_probe_topk_plain(queries, cents, cent_sq, p)
+            score = (cent_sq.double()[None, :] - 2.0 * queries.double() @ cents.double().T).cpu()
+            atol = PROBE_RTOL * float((queries.norm(dim=1).max() + cents.norm(dim=1).max()) ** 2)
+            for bb in range(b):
+                errs = tie_rule_errors(score[bb, want[bb].long().cpu()].tolist(), want[bb].tolist(),
+                                       score[bb, got[bb].long().cpu()].tolist(), got[bb].tolist(),
+                                       lambda i, bb=bb: float(score[bb, i]), atol=atol)
+                assert not errs, (b, p, bb, errs[:3])
+
+
+@pytest.mark.cuda
+def test_ivf_probe_topk_refuses_bad_operands(cuda):
+    q, c, sq = torch.zeros((2, 8), device=cuda), torch.zeros((300, 8), device=cuda), torch.zeros(300, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        ivf_probe_topk.ivf_probe_topk(q.double(), c, sq, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        ivf_probe_topk.ivf_probe_topk(q.cpu(), c, sq, 4)
+    with pytest.raises(ValueError, match="p must"):
+        ivf_probe_topk.ivf_probe_topk(q, c, sq, ivf_probe_topk.MAX_P + 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ivf_probe_topk.ivf_probe_topk(torch.zeros((8, 2), device=cuda).T, c, sq, 4)
+    cap = ivf_probe_topk.MAX_P
+    got = ivf_probe_topk.ivf_probe_topk(q, c, sq, cap)  # every score equal: the lowest ids
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.arange(cap, dtype=torch.int32, device=cuda).expand(2, cap))
+
+
 @pytest.mark.cuda
 def test_ivf_kernel_wrappers_refuse_bad_operands(cuda):
     qp = torch.zeros((2, 8), device=cuda)
@@ -449,9 +556,11 @@ def test_ivf_index_on_card_matches_cpu(cuda, copies, bf16, monkeypatch):
     assert on_card._n_at_fit == 5000 and (on_card.slabs.dtype == torch.bfloat16) == bf16
     on_cpu = IndexIVF.from_arrays(params, on_card.to_arrays(), torch.device("cpu"))
     queries = rng.standard_normal((50, 32)).astype(np.float32) * 4
-    before = (ivf_scan.LAUNCHES, ivf_rerank.LAUNCHES)
+    before = (ivf_scan.LAUNCHES, ivf_rerank.LAUNCHES, dict(ivf_probe_topk.LAUNCHES_BY))
     d_card, i_card = on_card.search_batch(queries, 10)
     assert ivf_scan.LAUNCHES == before[0] + 1 and ivf_rerank.LAUNCHES == before[1] + 1
+    grew = {k: v - before[2].get(k, 0) for k, v in ivf_probe_topk.LAUNCHES_BY.items() if v != before[2].get(k, 0)}
+    assert grew == {("kernel", False): 1}  # probe selection is K5's
     d_cpu, i_cpu = on_cpu.search_batch(queries, 10)
     for b in range(len(queries)):
         dist = ((vecs.astype(np.float64) - queries[b]) ** 2).sum(-1)

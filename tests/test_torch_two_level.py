@@ -35,6 +35,7 @@ import semadb_tpu_torch.models.schema as port_schema
 import semadb_tpu_torch.vectorstore.kmeans as port_km
 from semadb_tpu.shard import Shard as JaxShard
 from semadb_tpu.store import open_store as jax_open_store
+from semadb_tpu_torch.ops.kernels import ivf_probe_topk as probe_topk
 from semadb_tpu_torch.ops.topk import tie_rule_errors
 from semadb_tpu_torch.shard import Shard
 from semadb_tpu_torch.store import open_store
@@ -60,6 +61,7 @@ def two_level(monkeypatch):
     for mod in (jax_ivf, port_ivf):
         monkeypatch.setattr(mod, "TWO_LEVEL_MIN_C", 64)
         monkeypatch.setattr(mod, "TWO_LEVEL_SUPERS", SUPERS)
+    for mod in (jax_ivf, probe_topk):  # the port's chunked probe selection is K5's plain version
         monkeypatch.setattr(mod, "PROBE_CHUNK_BYTES", 1)
         monkeypatch.setattr(mod, "PROBE_CHUNK_C", 32)
 
