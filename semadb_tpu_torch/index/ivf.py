@@ -121,6 +121,9 @@ FILTER_WIDEN = 4
 SLAB_BYTES = 7 * 2**30
 RELOC_T = 8  # relocation candidates for a primary whose home cluster is full
 WRITE_CHUNK = 131072  # rows per upload + scatter of a large write
+# Searches that projected their queries onto the traversal basis (D > PROJ_DIM):
+# calls of _ivf_query with a basis, and the query rows they projected
+PROJECTIONS = {"calls": 0, "rows": 0}
 
 
 def _long(a) -> torch.Tensor:
@@ -294,11 +297,17 @@ def _ivf_query(
     query); the final distances are the engine-wide metric (squared
     euclidean / negated dot / 1 - cosine), exact f32. ``filter_mask`` is a
     bool tensor over node ids or None; ``proj`` the [D, r] traversal basis
-    or None. The top rr of (K3's top rr ∪ the overflow's) equals the top rr
-    of all candidates, up to ties. ``keep``, when given, receives the
-    arguments of this call's K3 and K4 launches (``"k3"``, ``"k4"``), for
-    callers that check or time the kernels on a real search's operands."""
-    qp = queries if proj is None else queries @ proj
+    or None (each projection is counted in ``PROJECTIONS``). The top rr of
+    (K3's top rr ∪ the overflow's) equals the top rr of all candidates, up
+    to ties. ``keep``, when given, receives the arguments of this call's K3
+    and K4 launches (``"k3"``, ``"k4"``), for callers that check or time the
+    kernels on a real search's operands."""
+    if proj is None:
+        qp = queries
+    else:
+        qp = queries @ proj
+        PROJECTIONS["calls"] += 1
+        PROJECTIONS["rows"] += queries.shape[0]
     probe = _select_probes(qp, centroids, cent_sq, p)
     rr = max(RERANK_POOL_PQ if proj is not None else RERANK_POOL, 2 * k)
     mask_u8 = None if filter_mask is None else filter_mask.view(torch.uint8)
