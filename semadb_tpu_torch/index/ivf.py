@@ -85,6 +85,7 @@ from semadb_tpu_torch.ops.kernels.ivf_rerank import ivf_exact_rerank
 from semadb_tpu_torch.ops.kernels.ivf_scan import ivf_probe_scan
 from semadb_tpu_torch.utils.dirty import DirtyTracker
 from semadb_tpu_torch.utils.grow import initial_capacity, next_capacity
+from semadb_tpu_torch.utils.upload import upload_queries
 from semadb_tpu_torch.vectorstore.kmeans import (
     kmeans_assign,
     kmeans_assign_two_level,
@@ -1054,10 +1055,9 @@ class IndexIVF:
         the index's device, not waited for. ``keep``: see :func:`_ivf_query`
         and :func:`_ivf_query_pq` (not filled on the selective-filter path,
         which runs none of K3, K4 and K9)."""
+        q = upload_queries(queries, self.device)
         if isinstance(queries, torch.Tensor):
-            q = queries.to(self.device, torch.float32).reshape(-1, self.params.vector_size).contiguous()
-        else:
-            q = torch.from_numpy(np.atleast_2d(np.asarray(queries, np.float32))).to(self.device)
+            q = q.reshape(-1, self.params.vector_size)
         p = self._num_probes(num_probes)
         fm_np = None if filter_mask is None else np.asarray(filter_mask, bool)
         if fm_np is not None and int(fm_np.sum()) <= max(p * self.slab, FILTER_EXACT_CAP):

@@ -54,6 +54,7 @@ from semadb_tpu_torch.models.schema import VectorVamanaParams
 from semadb_tpu_torch.ops.distance import pairwise_distance
 from semadb_tpu_torch.ops.topk import smallest_k_stable
 from semadb_tpu_torch.utils.dirty import DirtyTracker
+from semadb_tpu_torch.utils.upload import upload_queries
 from semadb_tpu_torch.vectorstore import QuantConfig, VectorStore
 from semadb_tpu_torch.vectorstore.store import host_tensor
 
@@ -120,6 +121,7 @@ class IndexVamana:
         self.store.ensure_rows(self.state.capacity)
         # Entry seeds: a spread of live nodes beside the start node
         self._entry_seeds: Optional[np.ndarray] = None
+        self._entry_seeds_dev: Optional[torch.Tensor] = None  # the same seeds on the device
         # Query-routed entry (graphs the pool build made): cluster centroids
         # f32[C, D] and one live representative a cluster i32[C]
         self._route: Optional[tuple] = None
@@ -277,7 +279,7 @@ class IndexVamana:
             # The quantizer's fit trigger at the end of the write
             # (vamana.go:255-276: vecStore.Fit() before the flush)
             self._maybe_fit()
-            self._entry_seeds = None  # recomputed after any write
+            self._entry_seeds = self._entry_seeds_dev = None  # recomputed after any write
 
     def _maybe_fit(self) -> bool:
         """Fit the quantizer once the live count reaches its trigger; the fit
@@ -363,7 +365,7 @@ class IndexVamana:
             self._encode_after_build(ids32)
             self.sync()
             self.build_seconds["fit_s"] = time.perf_counter() - t0
-            self._entry_seeds = None
+            self._entry_seeds = self._entry_seeds_dev = None
 
     def _two_pass(self, ids32: np.ndarray, vec_t: torch.Tensor, l2: int) -> dict:
         """The two-pass schedule of :meth:`insert_bulk`; returns its seconds."""
@@ -425,14 +427,9 @@ class IndexVamana:
                 for i in range(0, len(ids), batch):
                     insert_batch(self.state, ids[i : i + batch], vecs[i : i + batch], self.config,
                                  search_size or self.params.search_size, keep_current=True, seed_own=seed_own)
-            self._entry_seeds = None
+            self._entry_seeds = self._entry_seeds_dev = None
 
     # -- reads -------------------------------------------------------------
-    def _queries(self, queries) -> torch.Tensor:
-        if isinstance(queries, torch.Tensor):
-            return torch.atleast_2d(queries).to(self.device, torch.float32).contiguous()
-        return torch.from_numpy(np.atleast_2d(np.asarray(queries, np.float32))).to(self.device)
-
     def _quant_args(self, q: torch.Tensor) -> dict:
         """The quantized walk's arguments once the store is fitted: its
         config, the code table (the graph's capacity rows) and the prepared
@@ -446,7 +443,9 @@ class IndexVamana:
         """Enqueue a search without waiting: device tensors (dists f32[B, k],
         ids i32[B, k]). ``queries`` is a numpy array or a tensor."""
         search_size = max(search_size or self.params.search_size, k)
-        q = self._queries(queries)
+        return self._search_async(upload_queries(queries, self.device), k, search_size)
+
+    def _search_async(self, q: torch.Tensor, k: int, search_size: int):
         with self._write_lock:
             return search_mod.search(self.state, q, self.config, search_size, k, seed_ids=self._seeds_for(q),
                                      **self._quant_args(q))
@@ -455,7 +454,7 @@ class IndexVamana:
         """The walk that :meth:`search_batch_async` runs (W = 2, its seeds,
         its route, the ring where it reranks), with its hops and counts, for
         the bench's hops per query."""
-        q = self._queries(queries)
+        q = upload_queries(queries, self.device)
         with self._write_lock:
             qa = self._quant_args(q)
             track = bool(qa) and not qa["quant"].user_bit_metric
@@ -467,10 +466,11 @@ class IndexVamana:
         routing, else the spread of live nodes for every query."""
         seed_arr = self._routed_seed_arr(q)
         if seed_arr is None:
-            seeds = self._get_entry_seeds()
+            if self._entry_seeds_dev is None and self._get_entry_seeds() is not None:
+                self._entry_seeds_dev = torch.as_tensor(self._entry_seeds, device=self.device)
+            seeds = self._entry_seeds_dev
             if seeds is not None:
-                seed_arr = torch.as_tensor(seeds, device=self.device)[None, :].expand(q.shape[0], len(seeds))
-                seed_arr = seed_arr.contiguous()
+                seed_arr = seeds[None, :].expand(q.shape[0], len(seeds)).contiguous()
         return seed_arr
 
     def search_batch(self, queries, k: int, search_size: int = 0,
@@ -478,9 +478,9 @@ class IndexVamana:
         """Top-k ids and distances for a batch of queries: (dists f32[B, k],
         ids i32[B, k]); empty places are (inf, -1)."""
         search_size = max(search_size or self.params.search_size, k)
-        q = self._queries(queries)
+        q = upload_queries(queries, self.device)
         if filter_mask is None:
-            d, i = self.search_batch_async(q, k, search_size)
+            d, i = self._search_async(q, k, search_size)
         else:
             with self._write_lock:
                 cap = self.state.capacity

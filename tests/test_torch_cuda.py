@@ -1360,3 +1360,128 @@ def test_shared_memory_opt_in_across_threads(cuda, kernel):
     for first, kept in zip(firsts, outs):
         assert len(kept) == P3_ROUNDS
         assert all(_p3_same(kernel, first, got) for got in kept)
+
+
+# The query upload (utils/upload.py): host batches from PINNED_MIN_BYTES on
+# reach the card through pinned staging, chunk by chunk, with no wait on the
+# stream; smaller ones take the pageable .to()
+UPLOAD_SHAPES = [(1, 128), (1, 1536), (4096, 128), (682, 1536), (683, 1536), (4096, 1536), (11000, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d", UPLOAD_SHAPES)
+@pytest.mark.parametrize("layout", ["float32", "float64", "strided", "tensor"])
+def test_pinned_upload_equals_pageable(cuda, b, d, layout):
+    """Either route's device tensor is bitwise the pageable ``.to()``'s, and
+    is counted under its route, the pinned one with its bytes and chunks."""
+    from semadb_tpu_torch.utils import upload
+
+    rng = np.random.default_rng(b + d)
+    x = rng.standard_normal((b, 2 * d) if layout == "strided" else (b, d))
+    x = {"float32": x.astype(np.float32), "float64": x, "strided": x[:, ::2],
+         "tensor": torch.from_numpy(x.astype(np.float32))}[layout]
+    want = (x if layout == "tensor" else torch.from_numpy(np.asarray(x, np.float32))).to(cuda)
+    pinned = b * d * 4 >= upload.PINNED_MIN_BYTES
+    before = dict(upload.UPLOADS)
+    got = upload.upload_queries(x, cuda)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.dtype == torch.float32 and got.is_contiguous()
+    assert torch.equal(got, want)
+    if pinned:
+        assert upload.UPLOADS == {**before, "pinned": before["pinned"] + 1, "bytes": before["bytes"] + b * d * 4,
+                                  "chunks": before["chunks"] + len(upload.chunk_rows(b, d * 4))}
+    else:
+        assert upload.UPLOADS == {**before, "direct": before["direct"] + 1}
+    assert torch.equal(upload.upload_queries(want, cuda), want)  # a device tensor takes the direct route
+    assert upload.UPLOADS["direct"] == before["direct"] + 1 + (not pinned)
+
+
+# Rows of 32 floats: a batch of PINNED_ROWS takes the pinned route
+PINNED_ROWS = 32768
+
+
+@pytest.fixture(scope="module")
+def upload_engines():
+    """A small IVF and a small unrouted Vamana index on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from semadb_tpu_torch.index.vamana import IndexVamana
+    from semadb_tpu_torch.models.schema import VectorVamanaParams
+    from semadb_tpu_torch.utils import upload
+
+    assert PINNED_ROWS * 32 * 4 >= upload.PINNED_MIN_BYTES
+    cuda = torch.device("cuda")
+    rng = np.random.default_rng(24)
+    cents = rng.standard_normal((40, 32)).astype(np.float32) * 4
+    vecs = (cents[rng.integers(0, 40, 5000)] + rng.standard_normal((5000, 32))).astype(np.float32)
+    ivf = IndexIVF(VectorIVFParams(vector_size=32, distance_metric="euclidean", assign_copies=2), cuda)
+    ivf.insert_bulk(np.arange(2, 5002), vecs)
+    vam = IndexVamana(VectorVamanaParams(vector_size=32, distance_metric="euclidean", search_size=75,
+                                         degree_bound=32), cuda)
+    vam.insert_update_delete(zip(range(2, 2002), vecs[:2000]))
+    return {"ivf": ivf, "vamana": vam}, rng
+
+
+def _answers(handle):
+    return [t.cpu().numpy() for t in handle]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["ivf", "vamana"])
+def test_search_async_does_not_wait_on_the_stream(upload_engines, engine):
+    """``search_batch_async`` of a host batch on the pinned route returns
+    while work queued ahead of it still runs: nothing on its path waits for
+    the stream."""
+    from semadb_tpu_torch.utils import upload
+
+    engines, rng = upload_engines
+    idx = engines[engine]
+    q = (rng.standard_normal((PINNED_ROWS, 32)) * 4).astype(np.float32)
+    want = _answers(idx.search_batch_async(q, 10))  # warm: kernels, caches, pinned blocks
+    torch.cuda.synchronize()
+    before = upload.UPLOADS["pinned"]
+    torch.cuda._sleep(2_000_000_000)  # about a second of the card's clock
+    handle = idx.search_batch_async(q, 10)
+    still_running = not torch.cuda.current_stream().query()
+    got = _answers(handle)
+    assert still_running and upload.UPLOADS["pinned"] == before + 1
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["ivf", "vamana"])
+def test_staging_is_not_refilled_before_its_copy(upload_engines, engine):
+    """32 distinct pinned-route batches submitted behind a sleeping stream,
+    before any readback, each give the answer the same batch gives alone,
+    and 32 uploads queued the same way arrive intact."""
+    from semadb_tpu_torch.utils import upload
+
+    engines, rng = upload_engines
+    idx = engines[engine]
+    batches = [(rng.standard_normal((PINNED_ROWS, 32)) * 4).astype(np.float32) for _ in range(32)]
+    alone = [_answers(idx.search_batch_async(q, 10)) for q in batches]
+    torch.cuda.synchronize()
+    before = upload.UPLOADS["pinned"]
+    torch.cuda._sleep(500_000_000)
+    handles = [idx.search_batch_async(q, 10) for q in batches]
+    torch.cuda._sleep(500_000_000)
+    uploads = [upload.upload_queries(q, torch.device("cuda")) for q in batches]
+    assert upload.UPLOADS["pinned"] == before + 64
+    for h, want in zip(handles, alone):
+        assert all(np.array_equal(g, w) for g, w in zip(_answers(h), want))
+    for u, q in zip(uploads, batches):
+        assert np.array_equal(u.cpu().numpy(), q)
+
+
+@pytest.mark.cuda
+def test_vamana_seed_tensor_stays_on_the_card(upload_engines):
+    """The unrouted walk's entry seeds are uploaded once a graph state, and
+    equal a fresh upload of the host seeds."""
+    engines, rng = upload_engines
+    vam = engines["vamana"]
+    vam.search_batch_async(rng.standard_normal((8, 32)).astype(np.float32), 10)
+    seeds = vam._entry_seeds_dev
+    assert seeds is not None and seeds.device.type == "cuda"
+    assert torch.equal(seeds.cpu(), torch.as_tensor(vam._get_entry_seeds()))
+    vam.search_batch_async(rng.standard_normal((8, 32)).astype(np.float32), 10)
+    assert vam._entry_seeds_dev is seeds
